@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the R-MAT CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's generation paths on the card:
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, all at once) and drives the port's paths on the card:
+graph generation (phases 2-8) and the dense LM's scoring forward and
+serving engine (phases 9-11):
 
 1. build the kernels; print the card's name and power limit;
 2. the threefry random numbers on the card equal the same calls on the
@@ -24,11 +26,28 @@ drives the port's generation paths on the card:
 6. the public narrow wrapper ``kernels.ops.rmat_edges``, which must
    launch the uniforms kernel and equal ``ref.rmat_ref``;
 7. edge sampling alone at n = m = 27, E = 2^30;
-8. a ``kernels`` JSON line: per kernel its launches on its path (phases
-   4–6, counters reset before each), max |kernel − plain|, its time, its
-   plain version's time and its bound, all at the largest chunk of
-   phase 4; for the in-register kernel also the static opcode counts of
-   its level loop in the built SASS.
+8. the flash-attention kernel against its plain version at the scoring
+   path's shape (Hq = 4·32, Hkv = 16, S = T = 2048, d = 64, causal) in
+   bf16 (< 2e-2) and f32 (< 2e-5, TF32 off), one non-causal and one
+   d = 128 shape;
+9. scoring at full width: ``tinyllama-1.1b`` (22 layers, bf16, weights
+   from ``init_params(PRNGKey(0))``), ``attn_impl="flash"``, B = 4 × S =
+   2048 tokens from seed 1: one ``Model.forward``, its loss as
+   ``lm_loss`` takes it, both finite, exactly 22 kernel launches; the
+   kernel against its plain version on the first layer's own q/k/v; the
+   same forward on the einsum path: loss within 2e-2;
+10. serving at full width: ``ServingEngine(max_batch=4, max_len=512)``,
+    8 requests of 16–256 prompt tokens from seed 2, ``max_new=32``: every
+    request answered, each first token equal to ``Model.prefill`` of its
+    prompt alone into a fresh cache, no flash launch (the engine's cache
+    path is the einsum path); decode tokens/s and peak memory;
+11. a ``kernels`` JSON line: per kernel its launches on its path (counters
+    reset before each), max |kernel − plain|, its time, its plain
+    version's time, its bound and, where one PyTorch call computes the
+    same function, that call's time: the R-MAT kernels at the largest
+    chunk of phase 4 (for the in-register kernel also the static opcode
+    counts of its level loop in the built SASS), flash attention at
+    phase 8's bf16 shape beside ``scaled_dot_product_attention``.
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -69,6 +88,33 @@ PRNG_INT_OPS_PER_LEVEL = 41 + 27
 MAIN_N, MAIN_M, MAIN_E = 18, 15, 1 << 24
 K_PREF = 2                              # generate()'s default chunking
 DEMO_THETA = [0.45, 0.22, 0.2, 0.13]    # scripts/generate_dataset.py demo
+
+
+#: H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores and
+#: float32 on the FMA pipes; flash attention's bound is taken at the rate
+#: of its input type
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+#: the scoring path's attention shape: tinyllama-1.1b (32 heads, 4 kv
+#: heads, head dim 64) at B = 4, S = 2048, folded as the layer folds it
+LM_ARCH, LM_B, LM_S = "tinyllama-1.1b", 4, 2048
+FLASH_PATH = dict(hq=LM_B * 32, hkv=LM_B * 4, s=LM_S, d=64)
+
+
+def flash_bound_s(hq: int, hkv: int, s: int, t: int, d: int, causal: bool,
+                  dtype: str) -> tuple:
+    """Least time for flash attention's work and its limiter: useful
+    FLOP (QKᵀ and PV, 2 each per multiply-add; causal counts the
+    S(S+1)/2 unmasked pairs) over the type's peak, against q + o + k + v
+    bytes over HBM.  At the path's bf16 shape: 6.9e10 FLOP → 0.070 ms
+    against 75.5 MB → 0.023 ms, so operations bound it."""
+    pairs = s * (s + 1) // 2 if causal else s * t
+    flops = 4 * hq * d * pairs
+    nbytes = (2 * hq * s * d + 2 * hkv * t * d) * (2 if dtype == "bfloat16"
+                                                   else 4)
+    by_ops, by_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
 
 
 def prng_bound_s(L: int, n_edges: int) -> float:
@@ -161,12 +207,12 @@ def sass_level_loop(sass: str) -> dict:
             **{op: n / copies for op, n in sorted(ops.items())}}
 
 
-def read_sass(rs) -> str:
+def read_sass(build, rs) -> str:
     """``cuobjdump -sass`` of the built library ('' without the tool)."""
-    tool = Path(rs._nvcc()).with_name("cuobjdump")
+    tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return ""
-    return subprocess.run([str(tool), "-sass", str(rs.library_path())],
+    return subprocess.run([str(tool), "-sass", str(rs.LIBRARY.path())],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
 
@@ -447,6 +493,274 @@ def phase_timing(tr, ref, rs, torch, errs: dict, launches: dict,
     return rows
 
 
+def attn_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def flash_inputs(hq, hkv, s, d, dtype, seed, torch):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to("cuda", dtype)
+            for shape in ((hq, s, d), (hkv, s, d), (hkv, s, d))]
+
+
+def phase_flash_kernel(fa, ref, torch) -> float:
+    """K4 against its plain version: the scoring path's shape in bf16 and
+    f32, one non-causal and one d = 128 shape.  Returns the bf16 path
+    shape's max error."""
+    tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+    hq, hkv, s, d = (FLASH_PATH[k] for k in ("hq", "hkv", "s", "d"))
+    path_err = None
+    for hq_, hkv_, s_, d_, causal, dtype in (
+            (hq, hkv, s, d, True, torch.bfloat16),
+            (hq, hkv, s, d, True, torch.float32),
+            (32, 4, 1024, 64, False, torch.bfloat16),
+            (64, 16, 2048, 128, True, torch.bfloat16)):
+        q, k, v = flash_inputs(hq_, hkv_, s_, d_, dtype, s_ + d_, torch)
+        got = fa.flash_attention(q, k, v, causal=causal, group=hq_ // hkv_)
+        want = ref.attention_ref(q, k, v, causal=causal, group=hq_ // hkv_)
+        torch.cuda.synchronize()
+        err = attn_err(got, want)
+        log(f"flash kernel Hq={hq_} Hkv={hkv_} S=T={s_} d={d_} "
+            f"causal={causal} {dtype}: max|kernel - plain| {err:.3g} "
+            f"(limit {tol[dtype]:g})")
+        check(err < tol[dtype], "flash_attention disagrees with "
+              f"attention_ref ({err:.3g})")
+        if path_err is None:
+            path_err = err
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return path_err
+
+
+def phase_lm_scoring(tr, get_config, Model, transformer, fa, rs, ref,
+                     torch):
+    """Scoring at full width through the flash path, then the same forward
+    on the einsum path.  Returns (params, K4 launches, K4's max error on
+    the first layer's own q/k/v)."""
+    cfg = get_config(LM_ARCH).replace(attn_impl="flash")
+    model = Model(cfg, "cuda")
+    t0 = time.time()
+    params = model.init_params(tr.PRNGKey(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"lm: {cfg.name} L={cfg.n_layers} d={cfg.d_model} H={cfg.n_heads} "
+        f"KV={cfg.n_kv_heads} Hd={cfg.resolved_head_dim} ff={cfg.d_ff} "
+        f"V={cfg.vocab} {cfg.dtype}: {n_params} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB) drawn in {time.time() - t0:.2f}s; "
+        "depth and widths not cut")
+    toks = tr.randint(tr.PRNGKey(1), (LM_B, LM_S), 0, cfg.vocab, "cuda")
+    batch = {"tokens": toks, "labels": toks}
+
+    first = []
+    plain_call = fa.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not first:
+            first.append((q, k, v, kw))
+        return plain_call(q, k, v, **kw)
+
+    fa.flash_attention = capture       # keeps layer 0's inputs
+    try:
+        torch.cuda.synchronize()
+        rs.reset_launches()
+        fa.reset_launches()
+        t0 = time.time()
+        logits = model.forward(params, batch).logits
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = fa.LAUNCHES["flash_attention"]
+    finally:
+        fa.flash_attention = plain_call
+    loss = transformer.loss_from_logits(logits, batch, cfg).item()
+    check(tuple(logits.shape) == (LM_B, LM_S, cfg.vocab), "logits shape")
+    check(bool(torch.isfinite(logits).all()) and loss == loss
+          and abs(loss) != float("inf"), "non-finite logits or loss")
+    check(launches == cfg.n_layers,
+          f"{launches} flash launches on one forward, not {cfg.n_layers}")
+    check(sum(rs.LAUNCHES.values()) == 0, "R-MAT kernels ran in scoring")
+    t0 = time.time()
+    model.forward(params, batch)
+    torch.cuda.synchronize()
+    wall2 = time.time() - t0
+    log(f"lm scoring: B={LM_B} S={LM_S} flash forward {wall * 1e3:.1f} ms "
+        f"(first), {wall2 * 1e3:.1f} ms (second); "
+        f"{LM_B * LM_S / wall2:.1f} tokens/s; loss {loss:.6f}; "
+        f"flash launches {launches}")
+
+    q, k, v, kw = first[0]
+    err = attn_err(fa.flash_attention(q, k, v, **kw),
+                   ref.attention_ref(q, k, v, causal=kw["causal"],
+                                     group=kw["group"]))
+    log(f"lm scoring: layer 0's own q {tuple(q.shape)} k {tuple(k.shape)}: "
+        f"max|kernel - plain| {err:.3g}")
+    check(err < 2e-2, f"flash_attention disagrees on the path ({err:.3g})")
+    del first, q, k, v
+
+    einsum = Model(cfg.replace(attn_impl="einsum"), "cuda")
+    fa.reset_launches()
+    t0 = time.time()
+    logits_e = einsum.forward(params, batch).logits
+    torch.cuda.synchronize()
+    wall_e = time.time() - t0
+    loss_e = transformer.loss_from_logits(logits_e, batch, cfg).item()
+    dlogit = attn_err(logits, logits_e)
+    log(f"lm scoring: einsum forward {wall_e * 1e3:.1f} ms, loss "
+        f"{loss_e:.6f}; |loss diff| {abs(loss - loss_e):.3g}, max |logit "
+        f"diff| {dlogit:.3g}; flash launches {fa.LAUNCHES['flash_attention']}")
+    check(fa.LAUNCHES["flash_attention"] == 0, "einsum path ran the kernel")
+    check(abs(loss - loss_e) < 2e-2, "flash and einsum losses differ")
+    del logits, logits_e
+    torch.cuda.empty_cache()
+    return model, params, launches, err
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def trace_decode(eng, torch, steps: int = 4) -> None:
+    """Where a decode step's time goes: ``steps`` steps of the engine's
+    fixed-shape decode (all 4 slots at position 300) under
+    ``torch.profiler``: kernel launches, host-device syncs, device busy
+    time and idle share per step, and the top device operations."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cur = np.zeros((eng.B, 1), np.int32)
+    pos = np.full((eng.B, 1), 300, np.int32)
+    eng._decode(cur, pos)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng._decode(cur, pos)
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = [e.name for e in events if e.device_type == DeviceType.CPU]
+    launches = sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                         "cuLaunchKernel", "cuLaunchKernelEx") for n in host)
+    syncs = sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaMemcpy", "cudaMemcpyAsync") for n in host)
+    if not device:
+        log("serving trace: the profiler saw no device operations; busy "
+            "time and idle share not measured")
+        return
+    busy = busy_us((e.time_range.start, e.time_range.end)
+                   for e in device) / 1e6
+    by_name = {}
+    for e in device:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"serving trace: {steps} decode steps, traced wall "
+        f"{wall / steps * 1e3:.3f} ms per step; per step "
+        f"{len(device) / steps:.1f} device operations, "
+        f"{launches / steps:.1f} kernel launches, {syncs / steps:.1f} "
+        f"memcpy/sync calls, device busy {busy / steps * 1e3:.3f} ms; "
+        f"device idle share {1 - busy / wall:.4f}; top device operations "
+        f"(count, us per step): " + "; ".join(
+            f"{name[:60]} {c / steps:.0f} {t / steps:.1f}"
+            for name, (c, t) in top))
+
+
+def phase_serving(model, params, ServingEngine, Request, fa, torch):
+    """The engine at full width: 8 requests through 4 slots."""
+    import numpy as np
+
+    class TimedEngine(ServingEngine):
+        decode_s, decode_steps = 0.0, 0
+
+        def _decode(self, tokens, positions):
+            t0 = time.perf_counter()
+            out = super()._decode(tokens, positions)   # ends on the host
+            self.decode_s += time.perf_counter() - t0
+            self.decode_steps += 1
+            return out
+
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, model.cfg.vocab, size=int(n), dtype=np.int32)
+               for n in rng.integers(16, 257, size=8)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = TimedEngine(model, params, max_batch=4, max_len=512)
+    fa.reset_launches()
+    t0 = time.time()
+    out = eng.run([Request(i, p, max_new=32) for i, p in enumerate(prompts)])
+    wall = time.time() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(sorted(out) == list(range(len(prompts))), "requests unanswered")
+    check(all(len(v) == 32 for v in out.values()), "short answers")
+    check(launches == 0, "the engine's cache path ran the flash kernel")
+    decode_tokens = sum(len(v) - 1 for v in out.values())
+    log(f"serving: {len(prompts)} requests, prompts "
+        f"{[len(p) for p in prompts]}, max_new=32, 4 slots, max_len=512: "
+        f"wall {wall:.3f}s; {eng.decode_steps} decode steps in "
+        f"{eng.decode_s:.3f}s, {decode_tokens / eng.decode_s:.1f} decode "
+        f"tokens/s; peak device memory {peak:.2f} GB; flash launches "
+        f"{launches}")
+    trace_decode(eng, torch)
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            cache = model.init_cache(1, 512)
+            logits, _ = model.prefill(
+                params, {"tokens": torch.from_numpy(p)[None].cuda()}, cache)
+            first = int(torch.argmax(logits[0].float()))
+            check(first == out[i][0], f"request {i}: first token {out[i][0]}"
+                  f" but prefill alone gives {first}")
+    log("serving: every first token equals Model.prefill of its prompt "
+        "alone")
+
+
+def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
+    """K4, its plain version and SDPA at the scoring path's bf16 shape."""
+    F = torch.nn.functional
+    hq, hkv, s, d = (FLASH_PATH[k] for k in ("hq", "hkv", "s", "d"))
+    group = hq // hkv
+    q, k, v = flash_inputs(hq, hkv, s, d, torch.bfloat16, 7, torch)
+
+    def kern():
+        return fa.flash_attention(q, k, v, causal=True, group=group)
+
+    def plain():
+        return ref.attention_ref(q, k, v, causal=True, group=group)
+
+    def library():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=True,
+                                              enable_gqa=True)[0]
+
+    lib_err = attn_err(library(), plain())
+    plain_ms = cuda_ms(plain, 3)
+    ms = cuda_ms(kern, 10)
+    lib_ms = cuda_ms(library, 20)
+    ms2 = cuda_ms(kern, 10)
+    lib_ms2 = cuda_ms(library, 20)
+    plain_ms2 = cuda_ms(plain, 3)
+    bound_s, by = flash_bound_s(hq, hkv, s, s, d, True, "bfloat16")
+    shape = (f"Hq={hq} Hkv={hkv} S=T={s} d={d} causal bf16: the scoring "
+             f"path's attention ({LM_ARCH}, B={LM_B})")
+    log(f"timing flash_attention: kernel {ms:.4f}/{ms2:.4f} ms, plain "
+        f"{plain_ms:.3f}/{plain_ms2:.3f} ms, sdpa {lib_ms:.4f}/{lib_ms2:.4f}"
+        f" ms (max|sdpa - plain| {lib_err:.3g}), bound "
+        f"{bound_s * 1e3:.4f} ms ({by}), {shape}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:62",
+            "launches": launches, "max_abs_err": err,
+            "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+            "bound_ms": bound_s * 1e3, "bound_by": by,
+            "library_ms": min(lib_ms, lib_ms2), "shape": shape}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -454,21 +768,28 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import convert, random as tr
+    from repro_torch.configs import get_config
     from repro_torch.core import rmat, sampler
     from repro_torch.core.structure import KroneckerFit
     from repro_torch.graph import ops as gops
-    from repro_torch.kernels import ops, ref, rmat_sample as rs
+    from repro_torch.kernels import _build, ops, ref, rmat_sample as rs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model, transformer
+    from repro_torch.serving.engine import Request, ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
     t0 = time.time()
-    rs.build(verbose=True)
-    log(f"build: {time.time() - t0:.2f}s ({rs.library_path().name}); "
+    reports = _build.build_all([rs.LIBRARY, fa.LIBRARY])
+    for name, report in reports.items():
+        log(f"ptxas {name}:\n{report or 'built already'}")
+    log(f"build: {time.time() - t0:.2f}s "
+        f"({rs.LIBRARY.path().name}, {fa.LIBRARY.path().name}); "
         f"card: {card}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    sass = sass_level_loop(read_sass(rs))
+    sass = sass_level_loop(read_sass(_build, rs))
     log(f"sass: the prng kernel's level loop, static opcodes per threefry "
         f"copy: {sass or 'not read'}; its bound counts "
         f"{PRNG_ALU_OPS_PER_LEVEL} alu-only (SHF + LOP3) and "
@@ -476,6 +797,7 @@ def main() -> int:
 
     phase_rng(tr, torch)
     errs = phase_kernels(tr, ref, rs, torch)
+    errs["flash_attention"] = phase_flash_kernel(fa, ref, torch)
     # each path runs with the counters at 0 and is read right after; each
     # kernel is also held against its plain version at the shapes its
     # path gave it
@@ -489,9 +811,18 @@ def main() -> int:
                     ("rmat_sample_uniforms", e3)):
         errs[name] = max(errs[name], e)
     phase_struct_at_scale(tr, rmat, KroneckerFit, rs, torch)
+    model, params, launches["flash_attention"], e4 = phase_lm_scoring(
+        tr, get_config, Model, transformer, fa, rs, ref, torch)
+    errs["flash_attention"] = max(errs["flash_attention"], e4)
+    phase_serving(model, params, ServingEngine, Request, fa, torch)
+    del model, params
+    torch.cuda.empty_cache()
     rows = phase_timing(tr, ref, rs, torch, errs, launches, largest)
     if sass:
         rows[-1]["sass_level_loop"] = sass
+    rows.append(phase_flash_timing(fa, ref, torch,
+                                   launches["flash_attention"],
+                                   errs["flash_attention"]))
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,16 @@
+"""tinyllama-1.1b [dense] — llama2-arch small [arXiv:2401.02385]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="tinyllama-1.1b",
+    family="dense",
+    n_layers=22,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=5632,
+    vocab=32000,
+    head_dim=64,
+    rope_theta=10000.0,
+    microbatches=2,
+)

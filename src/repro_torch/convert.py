@@ -23,12 +23,16 @@ Keys (``{j}``/``{i}`` are column / block indices):
                                    plus ``n_classes``; absent for columns
                                    above ``max_cat_classes``
 =================================  ======================================
+
+``lm_params_from_numpy`` carries an LM's weights across: the JAX package's
+parameter tree as numpy arrays → the port's ``DenseLM`` module.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.core.aligner import (AlignerConfig, GBDTAligner,
                                       RandomAligner)
@@ -38,6 +42,8 @@ from repro_torch.core.gbdt import (GBDTClassifier, GBDTRegressor,
                                    forest_from_state)
 from repro_torch.core.pipeline import SyntheticGraphPipeline
 from repro_torch.core.structure import KroneckerFit
+from repro_torch.models.params import tree_map
+from repro_torch.models.transformer import DenseLM
 from repro_torch.tabular.schema import TableSchema
 from repro_torch.tabular.vgm import VGMParams
 
@@ -112,3 +118,25 @@ def pipeline_from_state(state: State, device="cuda") -> SyntheticGraphPipeline:
     return SyntheticGraphPipeline(fit, features, aligner,
                                   bool(state["pipe/bipartite"]),
                                   feature_kind, device)
+
+
+def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """numpy → torch, bfloat16 (numpy's ml_dtypes extension type, which
+    torch cannot read) by its 16-bit pattern.  A read-only array (as
+    ``np.asarray`` of a jax array is) is copied: torch tensors are
+    writable."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_numpy(tree, cfg, device="cuda") -> DenseLM:
+    """The JAX package's LM parameter tree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``) → the port's weights on
+    ``device``.  Layouts are kept (``wq`` (D, H, Hd), ``wo`` (H, Hd, D),
+    ...); stacked ``(L, ...)`` leaves are split per layer."""
+    return DenseLM(tree_map(lambda a: tensor_from_numpy(a).to(device), tree),
+                   cfg)

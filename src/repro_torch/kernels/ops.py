@@ -1,10 +1,11 @@
-"""Public narrow-id wrappers over the R-MAT kernels.
+"""Public wrappers over the kernels.
 
-They keep the JAX package's historical contract: ``(src, dst)`` int32 ids
-of at most 31 bits.  Wide ids and device/size auto-selection live one
-layer up, in ``repro_torch.core.sampler``.  The Pallas ``block`` and
-``interpret`` arguments have no counterpart: the CUDA kernels take any
-edge count, and a CPU tensor selects the plain version.
+The R-MAT wrappers keep the JAX package's historical contract: ``(src,
+dst)`` int32 ids of at most 31 bits.  Wide ids and device/size
+auto-selection live one layer up, in ``repro_torch.core.sampler``.  The
+Pallas ``block`` and ``interpret`` arguments have no counterpart: the CUDA
+kernels take any edge count, and a CPU tensor selects the plain version.
+``attention`` is the flash-attention kernel's entry point.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch.core.descend import LO_BITS
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmat_sample as rs
 
 
@@ -47,3 +49,11 @@ def rmat_edges_from_key(key: torch.Tensor, thetas: torch.Tensor, *, n: int,
     _require_narrow(n, m)
     bits = trandom.bits(key, (max(n, m), n_edges), thetas.device)
     return rmat_edges_bits(thetas, bits, n=n, m=m)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, blk_q: int = 128, blk_k: int = 128,
+              group: int = 1) -> torch.Tensor:
+    """Flash attention: q (Hq, S, d), k/v (Hkv, T, d), Hq == Hkv·group."""
+    return fa.flash_attention(q, k, v, causal=causal, blk_q=blk_q,
+                              blk_k=blk_k, group=group)

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the R-MAT kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
-Each kernel of ``kernels/rmat_sample.py`` has its plain version here: the
-wrappers take it for tensors on the CPU, and ``chip_smoke.py`` holds the
-CUDA kernels against it on the card.  All of them drive the one descend
-core (``repro_torch.core.descend.descend``) with plain tensor indexing.
+Each kernel of ``kernels/rmat_sample.py`` and ``kernels/flash_attention.py``
+has its plain version here: the wrappers take it for tensors on the CPU,
+and ``chip_smoke.py`` holds the CUDA kernels against it on the card.  The
+R-MAT ones drive the one descend core (``repro_torch.core.descend.descend``)
+with plain tensor indexing.
 """
 from __future__ import annotations
 
@@ -60,3 +61,23 @@ def rmat_ref(thetas, uniforms, n: int, m: int, id_dtype=torch.int32):
     check_id_capacity(n, id_dtype, "rmat_ref (src levels)")
     check_id_capacity(m, id_dtype, "rmat_ref (dst levels)")
     return combine_ids(src, n, id_dtype), combine_ids(dst, m, id_dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, group: int = 1) -> torch.Tensor:
+    """Plain version of ``flash_attention``: q (Hq, S, d), k/v (Hkv, T, d)
+    → (Hq, S, d) in q's dtype, scores scaled by 1/sqrt(d).  Query head
+    ``h`` reads kv head ``h // (Hq // Hkv)`` (``repeat_interleave``); the
+    full (S, T) scores are made in float32.  ``group`` is implied by the
+    shapes, as in the reference."""
+    Hq, S, d = q.shape
+    Hkv, T, _ = k.shape
+    scale = 1.0 / d ** 0.5
+    kk = k.repeat_interleave(Hq // Hkv, dim=0)
+    vv = v.repeat_interleave(Hq // Hkv, dim=0)
+    s = torch.einsum("hsd,htd->hst", q.float(), kk.float()) * scale
+    if causal:
+        keep = torch.ones((S, T), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hst,htd->hsd", p, vv.float()).to(q.dtype)

@@ -16,19 +16,12 @@ plain version in ``kernels/ref.py``, for CUDA tensors it launches the
 kernel on torch's current stream or raises.  ``LAUNCHES`` counts the
 launches of each kernel.
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
-a shared library under ``build/kernels/`` of the checkout (or
-``$REPRO_TORCH_BUILD``), from the source in this package, and loaded
-with ``ctypes``.
+The kernels are compiled at first use by ``kernels._build``, from the
+source in this package.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -36,7 +29,7 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch.core.descend import LO_BITS, IdParts
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 
 #: launches of each kernel since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"rmat_sample_uniforms": 0,
@@ -44,11 +37,22 @@ LAUNCHES: Dict[str, int] = {"rmat_sample_uniforms": 0,
                             "rmat_sample_prng": 0}
 
 SOURCE = Path(__file__).with_name("csrc") / "rmat_sample.cu"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_uint)
+    for name in ("rmat_uniforms", "rmat_bits"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, i, i, ll, ll, p, p, p, p, p]
+        fn.restype = i
+    lib.rmat_prng.argtypes = [p, u, u, i, i, ll, ll, p, p, p, p, p]
+    lib.rmat_prng.restype = i
+    lib.rmat_error_string.argtypes = [i]
+    lib.rmat_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = _build.CudaLibrary(SOURCE, _declare)
 
 
 def reset_launches() -> None:
@@ -56,65 +60,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def build_dir() -> Path:
-    default = Path(__file__).resolve().parents[3] / "build" / "kernels"
-    return Path(os.environ.get("REPRO_TORCH_BUILD", default))
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the R-MAT CUDA kernels are "
-                           "built from source at first use")
-    return found
-
-
-def library_path() -> Path:
-    """Where the compiled library for the current source lives (named by
-    a hash of the source and flags, so an edit rebuilds)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"librmat_sample-{digest[:12]}.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/rmat_sample.cu`` unless its library exists."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
-
-
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                           ctypes.c_uint)
-            for name in ("rmat_uniforms", "rmat_bits"):
-                fn = getattr(lib, name)
-                fn.argtypes = [p, p, i, i, ll, ll, p, p, p, p, p]
-                fn.restype = i
-            lib.rmat_prng.argtypes = [p, u, u, i, i, ll, ll, p, p, p, p, p]
-            lib.rmat_prng.restype = i
-            lib.rmat_error_string.argtypes = [i]
-            lib.rmat_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
+    return LIBRARY.lib()
 
 
 def _check_thetas(thetas: torch.Tensor, n: int, m: int) -> None:

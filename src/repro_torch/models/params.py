@@ -1,0 +1,89 @@
+"""Declarative parameters: ``ParamDef`` trees and their random weights.
+
+Model builders produce nested dicts (and, for unstacked layers, lists) of
+:class:`ParamDef` — shape, logical dims, init — as in the JAX package.
+``init_params`` materialises the same weights the JAX package's
+``init_params`` makes from the same key: leaves are taken in jax's tree
+order (dict keys sorted, lists in order), the key is split into one key
+per leaf, and each ``normal`` leaf is ``random.normal(key, shape) * scale``
+in float32, then cast to its dtype.  Leaves are drawn one at a time, so the
+int64 temporaries of the threefry draw stay the size of one leaf.  The
+logical dims are kept for the sharding port to come; nothing reads them
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+
+from repro_torch import random as trandom
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    dims: Tuple[Optional[str], ...]
+    init: str = "normal"          # normal | zeros | ones | constant
+    scale: Optional[float] = None  # default: 1/sqrt(fan_in) for 'normal'
+    value: float = 0.0             # for 'constant'
+    dtype: Optional[str] = None    # override model dtype (e.g. 'float32')
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.dims):
+            raise ValueError(f"shape {self.shape} and dims {self.dims} "
+                             "differ in rank")
+
+
+def torch_dtype(name) -> torch.dtype:
+    """``"bfloat16"`` → ``torch.bfloat16`` (a torch dtype passes through)."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, str(name))
+
+
+def leaves(tree) -> List[Any]:
+    """Leaves in jax's flattening order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every leaf, in jax's order, keeping the dict/list
+    structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, t) for t in tree]
+    return fn(tree)
+
+
+def _init_one(d: ParamDef, key: torch.Tensor, dtype, device) -> torch.Tensor:
+    dt = torch_dtype(d.dtype if d.dtype is not None else dtype)
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dt, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dt, device=device)
+    if d.init == "constant":
+        return torch.full(d.shape, d.value, dtype=dt, device=device)
+    if d.init == "normal":
+        fan_in = d.shape[0] if len(d.shape) == 1 else math.prod(d.shape[:-1])
+        # stacked layer/expert dims don't contribute to fan-in
+        n_stack = sum(1 for dim in d.dims[:-1] if dim in ("layers", "experts"))
+        if n_stack and len(d.shape) > 1 + n_stack:
+            fan_in = math.prod(d.shape[n_stack:-1])
+        scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        return (trandom.normal(key, d.shape, device) * scale).to(dt)
+    raise ValueError(f"unknown init {d.init!r}")
+
+
+def init_params(defs, key: torch.Tensor, dtype, device="cuda"):
+    """The ``ParamDef`` tree ``defs`` → the same tree of tensors on
+    ``device``, equal to the JAX package's ``init_params(defs, key,
+    dtype)`` for the same key (within ``random.normal``'s float32
+    rounding before the cast)."""
+    keys = iter(trandom.split(key, len(leaves(defs))))
+    return tree_map(lambda d: _init_one(d, next(keys), dtype, device), defs)

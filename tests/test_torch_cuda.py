@@ -3,14 +3,20 @@
 These tests import no JAX, so they run on a machine with a card and
 PyTorch alone (``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``); without a card they skip.  Ids are integers:
-kernel and plain version must agree exactly."""
+the R-MAT kernels and their plain versions must agree exactly.  Flash
+attention is held to 2e-5 in float32 (online vs full softmax differ in
+summation order; TF32 is off for the plain version's products) and 2e-2
+in bfloat16 (one bf16 rounding of outputs of magnitude ~1)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import random as tr
+from repro_torch.configs import get_config
 from repro_torch.core import sampler
-from repro_torch.kernels import ref, rmat_sample as rs
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref, rmat_sample as rs
+from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
 
@@ -21,6 +27,7 @@ TH = [0.45, 0.22, 0.2, 0.13]
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -78,3 +85,64 @@ def test_wrapper_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError, match="thetas on cpu"):
         rs.rmat_sample_bits(th, torch.zeros((8, 64), dtype=torch.int32,
                                             device=cuda), 8, 8)
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(Hkv, group, S, T, d, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(device, dtype)
+            for shape in ((Hkv * group, S, d), (Hkv, T, d), (Hkv, T, d))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(cuda, dtype, d, causal):
+    q, k, v = _qkv(2, 4, 256, 256, d, dtype, cuda, seed=d)
+    fa.reset_launches()
+    got = ops.attention(q, k, v, causal=causal, group=4)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    want = ref.attention_ref(q, k, v, causal=causal, group=4)
+    assert got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < ATTN_TOL[dtype], err
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ragged_tiles(cuda, causal):
+    """S and T that are no multiple of the kernel's 64-row tiles, S != T."""
+    q, k, v = _qkv(3, 2, 96, 160, 64, torch.float32, cuda, seed=1)
+    got = ops.attention(q, k, v, causal=causal, group=2, blk_q=32, blk_k=32)
+    want = ref.attention_ref(q, k, v, causal=causal, group=2)
+    assert (got - want).abs().max().item() < ATTN_TOL[torch.float32]
+
+
+def test_flash_attention_rejects_mixed_devices(cuda):
+    q, k, v = _qkv(2, 1, 128, 128, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="one device"):
+        ops.attention(q, k.cpu(), v)
+
+
+def test_flash_attention_rejects_unsupported_head_dim(cuda):
+    q, k, v = _qkv(2, 1, 128, 128, 48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.attention(q, k, v)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_forward_matches_einsum_on_card(cuda, B):
+    """The scoring forward through the kernel, one launch per layer, equal
+    to the einsum path in float32 (1e-4: products summed in another
+    order)."""
+    cfg = get_config("tinyllama-1.1b").smoke().replace(
+        dtype="float32", n_heads=8, n_kv_heads=2, head_dim=16)
+    model = Model(cfg.replace(attn_impl="flash"), cuda)
+    params = model.init_params(tr.PRNGKey(0))
+    toks = tr.randint(tr.PRNGKey(1), (B, 256), 0, cfg.vocab, cuda)
+    fa.reset_launches()
+    flash = model.forward(params, {"tokens": toks}).logits
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    einsum = Model(cfg, cuda).forward(params, {"tokens": toks}).logits
+    assert (flash - einsum).abs().max().item() < 1e-4

@@ -31,4 +31,5 @@ def test_no_jax_or_repro_imports(path):
 def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"random.py", "rmat_sample.py", "pipeline.py",
-            "chip_smoke.py"} <= names
+            "flash_attention.py", "engine.py", "transformer.py",
+            "layers.py", "chip_smoke.py"} <= names
