@@ -5,10 +5,13 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all at once) and drives the port's paths on the card:
-graph generation (phases 2-8) and the dense LM's scoring forward and
-serving engine (phases 9-11):
+graph generation (phases 2-7), the dense LM's scoring forward and serving
+engine (phases 8-10) and the toolchain probes S1-S4 (phase 12):
 
-1. build the kernels; print the card's name and power limit;
+1. build the kernels; print the card's name and power limit; read the
+   built SASS: the in-register R-MAT kernel's level loop, and the
+   ``HGMMA``/``UTMALDG``/``SYNCS`` opcodes of the tensor-core flash kernel
+   (the run fails without ``HGMMA``);
 2. the threefry random numbers on the card equal the same calls on the
    CPU;
 3. each kernel against its plain PyTorch version on the card: ids must
@@ -26,16 +29,19 @@ serving engine (phases 9-11):
 6. the public narrow wrapper ``kernels.ops.rmat_edges``, which must
    launch the uniforms kernel and equal ``ref.rmat_ref``;
 7. edge sampling alone at n = m = 27, E = 2^30;
-8. the flash-attention kernel against its plain version at the scoring
-   path's shape (Hq = 4·32, Hkv = 16, S = T = 2048, d = 64, causal) in
-   bf16 (< 2e-2) and f32 (< 2e-5, TF32 off), one non-causal and one
-   d = 128 shape;
+8. flash attention against its plain version, each call on the route
+   ``flash_attention.route`` gives it: the tensor-core (wgmma) kernel in
+   bf16 (< 2e-2) at the scoring path's shape (Hq = 4·32, Hkv = 16, S = T
+   = 2048, d = 64, causal), at d = 128, non-causal, GQA group 16 (d 64
+   and 128) and a ragged S = T = 1000; the FMA kernel in f32 (< 2e-5,
+   TF32 off) at the path's shape and in bf16 at d = 32;
 9. scoring at full width: ``tinyllama-1.1b`` (22 layers, bf16, weights
    from ``init_params(PRNGKey(0))``), ``attn_impl="flash"``, B = 4 × S =
    2048 tokens from seed 1: one ``Model.forward``, its loss as
-   ``lm_loss`` takes it, both finite, exactly 22 kernel launches; the
-   kernel against its plain version on the first layer's own q/k/v; the
-   same forward on the einsum path: loss within 2e-2;
+   ``lm_loss`` takes it, both finite, exactly 22 launches of the
+   tensor-core kernel; the kernel against its plain version on the first
+   layer's own q/k/v; the same forward on the einsum path: loss within
+   2e-2;
 10. serving at full width: ``ServingEngine(max_batch=4, max_len=512)``,
     8 requests of 16–256 prompt tokens from seed 2, ``max_new=32``: every
     request answered, each first token equal to ``Model.prefill`` of its
@@ -47,7 +53,13 @@ serving engine (phases 9-11):
     same function, that call's time: the R-MAT kernels at the largest
     chunk of phase 4 (for the in-register kernel also the static opcode
     counts of its level loop in the built SASS), flash attention at
-    phase 8's bf16 shape beside ``scaled_dot_product_attention``.
+    phase 8's bf16 shape beside the FMA kernel at the same shape and
+    ``scaled_dot_product_attention``, and the probes of phase 12;
+12. the probes S1-S4 of ``scripts/spike_pallas.py`` at its shapes and on
+    its inputs, one launch each with the counters at 0, then on random
+    inputs of the same shapes: each equal to its plain version (S4 within
+    1e-6), timed beside ``torch.add``, ``torch.mul`` and ``sum(0)`` (S3
+    has no library call: ``torch.randint`` is Philox, not threefry).
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -207,14 +219,39 @@ def sass_level_loop(sass: str) -> dict:
             **{op: n / copies for op, n in sorted(ops.items())}}
 
 
-def read_sass(build, rs) -> str:
-    """``cuobjdump -sass`` of the built library ('' without the tool)."""
+def read_sass(build, library) -> str:
+    """``cuobjdump -sass`` of a built library ('' without the tool)."""
     tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return ""
-    return subprocess.run([str(tool), "-sass", str(rs.LIBRARY.path())],
+    return subprocess.run([str(tool), "-sass", str(library.path())],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
+
+
+#: the opcodes that show a kernel runs on Hopper's tensor cores (HGMMA:
+#: wgmma), is fed by TMA (UTMALDG: a tensor-map load) and waits on
+#: mbarriers (SYNCS)
+TC_OPCODES = ("HGMMA", "UTMALDG", "SYNCS")
+
+
+def sass_opcodes(sass: str, kernel: str) -> dict:
+    """Static counts of ``TC_OPCODES`` in each SASS function whose name
+    holds ``kernel`` (one per template instance)."""
+    import re
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            name = fn if kernel in fn else None
+            if name:
+                counts[name] = dict.fromkeys(TC_OPCODES, 0)
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                       r"([A-Z][\w.]*)", line)
+        if name and ins and ins.group(1).split(".")[0] in TC_OPCODES:
+            counts[name][ins.group(1).split(".")[0]] += 1
+    return counts
 
 
 def phase_rng(tr, torch) -> None:
@@ -503,33 +540,49 @@ def flash_inputs(hq, hkv, s, d, dtype, seed, torch):
             for shape in ((hq, s, d), (hkv, s, d), (hkv, s, d))]
 
 
-def phase_flash_kernel(fa, ref, torch) -> float:
-    """K4 against its plain version: the scoring path's shape in bf16 and
-    f32, one non-causal and one d = 128 shape.  Returns the bf16 path
-    shape's max error."""
+def phase_flash_kernel(fa, ref, torch) -> tuple:
+    """K4 against its plain version, each call on the route its dtype and
+    head dim select (checked on the per-route counters).  Returns the max
+    error of the tensor-core route (bf16) and of the FMA route in f32."""
     tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
     hq, hkv, s, d = (FLASH_PATH[k] for k in ("hq", "hkv", "s", "d"))
-    path_err = None
-    for hq_, hkv_, s_, d_, causal, dtype in (
-            (hq, hkv, s, d, True, torch.bfloat16),
-            (hq, hkv, s, d, True, torch.float32),
-            (32, 4, 1024, 64, False, torch.bfloat16),
-            (64, 16, 2048, 128, True, torch.bfloat16)):
+    bf, f32 = torch.bfloat16, torch.float32
+    routes = ("wgmma", "fma")
+    errs = {}
+    # Hq, Hkv, S = T, d, causal, dtype, blk (the Pallas blocks; 8 lets a
+    # ragged S through the wrapper's check), route
+    for hq_, hkv_, s_, d_, causal, dtype, blk, want_route in (
+            (hq, hkv, s, d, True, bf, 128, "wgmma"),
+            (64, 16, 2048, 128, True, bf, 128, "wgmma"),
+            (32, 4, 1024, 64, False, bf, 128, "wgmma"),
+            (64, 4, 2048, 64, True, bf, 128, "wgmma"),
+            (64, 4, 2048, 128, True, bf, 128, "wgmma"),
+            (16, 4, 1000, 64, True, bf, 8, "wgmma"),
+            (16, 4, 1000, 128, False, bf, 8, "wgmma"),
+            (hq, hkv, s, d, True, f32, 128, "fma"),
+            (32, 4, 1024, 32, True, bf, 128, "fma")):
         q, k, v = flash_inputs(hq_, hkv_, s_, d_, dtype, s_ + d_, torch)
-        got = fa.flash_attention(q, k, v, causal=causal, group=hq_ // hkv_)
-        want = ref.attention_ref(q, k, v, causal=causal, group=hq_ // hkv_)
+        fa.reset_launches()
+        got = fa.flash_attention(q, k, v, causal=causal, group=hq_ // hkv_,
+                                 blk_q=blk, blk_k=blk)
         torch.cuda.synchronize()
+        route_launches = {r: fa.LAUNCHES[f"flash_attention_{r}"]
+                          for r in routes}
+        want = ref.attention_ref(q, k, v, causal=causal, group=hq_ // hkv_)
         err = attn_err(got, want)
         log(f"flash kernel Hq={hq_} Hkv={hkv_} S=T={s_} d={d_} "
-            f"causal={causal} {dtype}: max|kernel - plain| {err:.3g} "
-            f"(limit {tol[dtype]:g})")
+            f"causal={causal} {dtype}: route {want_route} (launches "
+            f"{route_launches}), max|kernel - plain| {err:.3g} (limit "
+            f"{tol[dtype]:g})")
+        check(route_launches == {r: int(r == want_route) for r in routes},
+              f"flash_attention took the wrong route: {route_launches}")
         check(err < tol[dtype], "flash_attention disagrees with "
               f"attention_ref ({err:.3g})")
-        if path_err is None:
-            path_err = err
+        errs[want_route, dtype] = max(errs.get((want_route, dtype), 0.0),
+                                      err)
         del q, k, v, got, want
     torch.cuda.empty_cache()
-    return path_err
+    return errs["wgmma", bf], errs["fma", f32]
 
 
 def phase_lm_scoring(tr, get_config, Model, transformer, fa, rs, ref,
@@ -569,14 +622,16 @@ def phase_lm_scoring(tr, get_config, Model, transformer, fa, rs, ref,
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = fa.LAUNCHES["flash_attention"]
+        tc_launches = fa.LAUNCHES["flash_attention_wgmma"]
     finally:
         fa.flash_attention = plain_call
     loss = transformer.loss_from_logits(logits, batch, cfg).item()
     check(tuple(logits.shape) == (LM_B, LM_S, cfg.vocab), "logits shape")
     check(bool(torch.isfinite(logits).all()) and loss == loss
           and abs(loss) != float("inf"), "non-finite logits or loss")
-    check(launches == cfg.n_layers,
-          f"{launches} flash launches on one forward, not {cfg.n_layers}")
+    check(launches == tc_launches == cfg.n_layers,
+          f"{launches} flash launches ({tc_launches} on the tensor-core "
+          f"route) on one forward, not {cfg.n_layers}")
     check(sum(rs.LAUNCHES.values()) == 0, "R-MAT kernels ran in scoring")
     t0 = time.time()
     model.forward(params, batch)
@@ -585,7 +640,7 @@ def phase_lm_scoring(tr, get_config, Model, transformer, fa, rs, ref,
     log(f"lm scoring: B={LM_B} S={LM_S} flash forward {wall * 1e3:.1f} ms "
         f"(first), {wall2 * 1e3:.1f} ms (second); "
         f"{LM_B * LM_S / wall2:.1f} tokens/s; loss {loss:.6f}; "
-        f"flash launches {launches}")
+        f"flash launches {launches}, {tc_launches} on the tensor-core route")
 
     q, k, v, kw = first[0]
     err = attn_err(fa.flash_attention(q, k, v, **kw),
@@ -721,7 +776,8 @@ def phase_serving(model, params, ServingEngine, Request, fa, torch):
 
 
 def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
-    """K4, its plain version and SDPA at the scoring path's bf16 shape."""
+    """K4's tensor-core kernel, its FMA kernel on the same bf16 inputs, its
+    plain version and SDPA at the scoring path's shape."""
     F = torch.nn.functional
     hq, hkv, s, d = (FLASH_PATH[k] for k in ("hq", "hkv", "s", "d"))
     group = hq // hkv
@@ -729,6 +785,9 @@ def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
 
     def kern():
         return fa.flash_attention(q, k, v, causal=True, group=group)
+
+    def fma():
+        return fa.launch(q, k, v, "fma", causal=True, group=group)
 
     def plain():
         return ref.attention_ref(q, k, v, causal=True, group=group)
@@ -738,27 +797,119 @@ def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
                                               is_causal=True,
                                               enable_gqa=True)[0]
 
+    check(fa.route(q.dtype, d) == "wgmma", "the path's shape left the "
+          "tensor-core route")
     lib_err = attn_err(library(), plain())
     plain_ms = cuda_ms(plain, 3)
-    ms = cuda_ms(kern, 10)
+    ms = cuda_ms(kern, 20)
+    fma_ms = cuda_ms(fma, 5)
     lib_ms = cuda_ms(library, 20)
-    ms2 = cuda_ms(kern, 10)
+    ms2 = cuda_ms(kern, 20)
     lib_ms2 = cuda_ms(library, 20)
+    fma_ms2 = cuda_ms(fma, 5)
     plain_ms2 = cuda_ms(plain, 3)
     bound_s, by = flash_bound_s(hq, hkv, s, s, d, True, "bfloat16")
     shape = (f"Hq={hq} Hkv={hkv} S=T={s} d={d} causal bf16: the scoring "
              f"path's attention ({LM_ARCH}, B={LM_B})")
-    log(f"timing flash_attention: kernel {ms:.4f}/{ms2:.4f} ms, plain "
-        f"{plain_ms:.3f}/{plain_ms2:.3f} ms, sdpa {lib_ms:.4f}/{lib_ms2:.4f}"
-        f" ms (max|sdpa - plain| {lib_err:.3g}), bound "
-        f"{bound_s * 1e3:.4f} ms ({by}), {shape}")
+    log(f"timing flash_attention: tensor-core kernel {ms:.4f}/{ms2:.4f} ms "
+        f"({bound_s / min(ms, ms2) * 1e5:.1f}% of bound), FMA kernel "
+        f"{fma_ms:.4f}/{fma_ms2:.4f} ms, plain {plain_ms:.3f}/"
+        f"{plain_ms2:.3f} ms, sdpa {lib_ms:.4f}/{lib_ms2:.4f} ms (max|sdpa "
+        f"- plain| {lib_err:.3g}), bound {bound_s * 1e3:.4f} ms ({by}), "
+        f"{shape}")
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "replaces": "src/repro/kernels/flash_attention.py:62",
             "launches": launches, "max_abs_err": err,
             "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
             "bound_ms": bound_s * 1e3, "bound_by": by,
-            "library_ms": min(lib_ms, lib_ms2), "shape": shape}
+            "library_ms": min(lib_ms, lib_ms2),
+            "fma_ms": min(fma_ms, fma_ms2),
+            "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "shape": shape}
+
+
+def phase_probes(spike, ref, torch) -> list:
+    """S1-S4 at the spike script's shapes: first on its own inputs, one
+    launch each with the counters at 0 (the probes' path), then on random
+    inputs of the same shapes; each held against its plain version and
+    timed beside its library call.  They are launch-bound: the rows'
+    bounds count bytes (and S3's threefry operations)."""
+    dev, f32 = "cuda", torch.float32
+    gen = torch.Generator().manual_seed(12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def seed(value):
+        return torch.tensor([value], dtype=torch.int32, device=dev)
+
+    arange = torch.arange(1024, dtype=f32, device=dev).reshape(8, 128)
+    # name, TPU kernel, kernel, plain version, library call (None: there is
+    # none, torch.randint is Philox), the spike's inputs, random inputs
+    probes = (
+        ("add", "scripts/spike_pallas.py:15", spike.add, ref.add_ref,
+         torch.add, (arange, arange), (rnd(8, 128), rnd(8, 128))),
+        ("double_blocks", "scripts/spike_pallas.py:29", spike.double_blocks,
+         ref.double_ref, lambda x: torch.mul(x, 2),
+         (torch.ones((1024, 256), dtype=f32, device=dev),),
+         (rnd(1024, 256),)),
+        ("prng_bits", "scripts/spike_pallas.py:45", spike.prng_bits,
+         ref.prng_bits_ref, None, (seed(42), (8, 128)),
+         (seed(-77), (8, 128))),
+        ("column_sum", "scripts/spike_pallas.py:62", spike.column_sum,
+         ref.column_sum_ref, lambda x: x.sum(0, keepdim=True),
+         (torch.ones((8, 128), dtype=f32, device=dev),), (rnd(8, 128),)))
+    torch.cuda.synchronize()
+    spike.reset_launches()
+    outs = [kern(*spike_in) for _, _, kern, _, _, spike_in, _ in probes]
+    torch.cuda.synchronize()
+    launches = dict(spike.LAUNCHES)
+    log(f"probes: the spike's shapes and inputs, launches {launches}; sums "
+        f"{[float(o.float().sum()) for o in outs]}")
+    rows = []
+    for (name, tpu, kern, plain, lib, spike_in, args), out in zip(probes,
+                                                                  outs):
+        check(launches[name] == 1, f"probe {name} launched "
+              f"{launches[name]} times, not once")
+        err = 0.0
+        for inputs, got in ((spike_in, out), (args, kern(*args))):
+            want = plain(*inputs)
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"probe {name}: {got.dtype} {tuple(got.shape)} against "
+                  f"{want.dtype} {tuple(want.shape)}")
+            err = max(err, (got.double() - want.double()).abs().max().item())
+        check(err <= (1e-6 if name == "column_sum" else 0.0),
+              f"probe {name} disagrees with its plain version ({err:.3g})")
+        x = args[0]
+        in_bytes = sum(a.numel() * a.element_size() for a in args
+                       if isinstance(a, torch.Tensor))
+        by_bytes = (in_bytes + out.numel() * 4) / HBM_BYTES_PER_S
+        if name == "prng_bits":
+            by_ops = prng_bound_s(1, out.numel())
+        else:   # one add or multiply per input element
+            by_ops = x.numel() / PEAK_FLOPS["float32"]
+        bound_s, by = ((by_ops, "operations") if by_ops > by_bytes
+                       else (by_bytes, "bytes"))
+        ms = min(cuda_ms(lambda: kern(*args), 200) for _ in range(2))
+        plain_ms = min(cuda_ms(lambda: plain(*args), 200) for _ in range(2))
+        lib_ms = (None if lib is None else
+                  min(cuda_ms(lambda: lib(*args), 200) for _ in range(2)))
+        dims = args[1] if name == "prng_bits" else tuple(x.shape)
+        shape = (f"{dims}: the spike's shape; launch-bound, times per call "
+                 "in a loop of 200")
+        log(f"timing probe {name}: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, library "
+            f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
+            f"bound {bound_s * 1e9:.2f} ns ({by}), max|err| {err:.3g}, "
+            f"{shape}")
+        rows.append({"name": f"spike_{name}", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/spike.cu",
+                     "replaces": tpu, "launches": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_s * 1e3, "bound_by": by,
+                     "library_ms": lib_ms, "shape": shape})
+    return rows
 
 
 def main() -> int:
@@ -773,31 +924,38 @@ def main() -> int:
     from repro_torch.core.structure import KroneckerFit
     from repro_torch.graph import ops as gops
     from repro_torch.kernels import _build, ops, ref, rmat_sample as rs
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention as fa, spike
     from repro_torch.models import Model, transformer
     from repro_torch.serving.engine import Request, ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
-    t0 = time.time()
-    reports = _build.build_all([rs.LIBRARY, fa.LIBRARY])
+    t_start = t0 = time.time()
+    libraries = [rs.LIBRARY, fa.LIBRARY, fa.WGMMA_LIBRARY, spike.LIBRARY]
+    reports = _build.build_all(libraries)
     for name, report in reports.items():
         log(f"ptxas {name}:\n{report or 'built already'}")
     log(f"build: {time.time() - t0:.2f}s "
-        f"({rs.LIBRARY.path().name}, {fa.LIBRARY.path().name}); "
+        f"({', '.join(lib.path().name for lib in libraries)}); "
         f"card: {card}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    sass = sass_level_loop(read_sass(_build, rs))
+    sass = sass_level_loop(read_sass(_build, rs.LIBRARY))
     log(f"sass: the prng kernel's level loop, static opcodes per threefry "
         f"copy: {sass or 'not read'}; its bound counts "
         f"{PRNG_ALU_OPS_PER_LEVEL} alu-only (SHF + LOP3) and "
         f"{PRNG_INT_OPS_PER_LEVEL} integer operations per level")
+    tc_sass = sass_opcodes(read_sass(_build, fa.WGMMA_LIBRARY),
+                           "flash_wgmma_kernel")
+    log(f"sass: the tensor-core flash kernel, static opcode counts per "
+        f"template instance: {tc_sass or 'not read'}")
+    check(len(tc_sass) == 2 and all(c["HGMMA"] > 0 for c in tc_sass.values()),
+          "the tensor-core flash kernel's SASS holds no HGMMA")
 
     phase_rng(tr, torch)
     errs = phase_kernels(tr, ref, rs, torch)
-    errs["flash_attention"] = phase_flash_kernel(fa, ref, torch)
+    errs["flash_attention"], f32_err = phase_flash_kernel(fa, ref, torch)
     # each path runs with the counters at 0 and is read right after; each
     # kernel is also held against its plain version at the shapes its
     # path gave it
@@ -823,6 +981,11 @@ def main() -> int:
     rows.append(phase_flash_timing(fa, ref, torch,
                                    launches["flash_attention"],
                                    errs["flash_attention"]))
+    rows[-1].update(fma_f32_max_abs_err=f32_err,
+                    sass_opcodes=list(tc_sass.values()))
+    rows += phase_probes(spike, ref, torch)
+    log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f}s, "
+        "builds included")
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -3,9 +3,10 @@
 Each kernel source under ``csrc/`` has a plain C interface.  At first use
 it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` of the checkout (or ``$REPRO_TORCH_BUILD``), named by a
-hash of the source and the flags so that an edit rebuilds, and loaded with
-``ctypes``.  ``build_all`` starts one ``nvcc`` per source at once, so a
-fresh machine pays for the slowest build, not for their sum.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags so
+that an edit rebuilds, and loaded with ``ctypes``.  ``build_all`` starts
+one ``nvcc`` per source at once, so a fresh machine pays for the slowest
+build, not for their sum.
 """
 from __future__ import annotations
 
@@ -50,8 +51,10 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        headers = sorted(self.source.parent.glob("*.cuh"))
+        digest = hashlib.sha256(
+            b"".join(p.read_bytes() for p in (self.source, *headers))
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return build_dir() / f"lib{self.source.stem}-{digest[:12]}.so"
 
     def _start(self) -> Optional[Tuple[subprocess.Popen, Path]]:

@@ -22,6 +22,7 @@
 //     the same way.  The level thresholds live in shared memory.
 //   * prng: integer work.  The TPU kernel drew the TPU's hardware bits in
 //     VMEM, which Hopper does not have.  This kernel computes in registers
+//     (threefry.cuh)
 //     the threefry2x32 word that rmat_bits would read from memory:
 //     word (ell, e) = w0 ^ w1 of threefry2x32(key, (c >> 32, c & 0xffffffff))
 //     with c = ell * stride + e, i.e. jax.random.bits(key, (L, stride)) in
@@ -37,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 64;
@@ -48,35 +51,6 @@ enum Source { kUniforms = 0, kBits = 1, kPrng = 2 };
 __device__ __forceinline__ float bits_to_unit(uint32_t b) {
   return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
 }
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-#define TF_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl(x1, r); \
-  x1 ^= x0;
-
-__device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1,
-                                                  uint64_t c) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = (uint32_t)(c >> 32) + k0;
-  uint32_t x1 = (uint32_t)c + k1;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-  return x0 ^ x1;
-}
-
-#undef TF_ROUND
 
 template <int SRC>
 __global__ void __launch_bounds__(kThreads)
@@ -114,7 +88,7 @@ rmat_kernel(const float* __restrict__ thetas, const void* __restrict__ in,
       } else if (SRC == kBits) {
         u = bits_to_unit(static_cast<const uint32_t*>(in)[at]);
       } else {
-        u = bits_to_unit(threefry_word(k0, k1, (uint64_t)at));
+        u = bits_to_unit(threefry::threefry_word(k0, k1, (uint64_t)at));
       }
       int sb = -1, db = -1;
       if (ell < lv_sq) {

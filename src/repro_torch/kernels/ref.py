@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the CUDA kernels.
 
-Each kernel of ``kernels/rmat_sample.py`` and ``kernels/flash_attention.py``
-has its plain version here: the wrappers take it for tensors on the CPU,
-and ``chip_smoke.py`` holds the CUDA kernels against it on the card.  The
-R-MAT ones drive the one descend core (``repro_torch.core.descend.descend``)
-with plain tensor indexing.
+Each kernel of ``kernels/rmat_sample.py``, ``kernels/flash_attention.py``
+and ``kernels/spike.py`` has its plain version in this module: the
+wrappers take it for tensors on the CPU, and ``chip_smoke.py`` holds the
+CUDA kernels against it on the card.  The R-MAT ones drive the one
+descend core (``repro_torch.core.descend.descend``) with plain tensor
+indexing.
 """
 from __future__ import annotations
 
@@ -81,3 +82,30 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = s.masked_fill(~keep, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hst,htd->hsd", p, vv.float()).to(q.dtype)
+
+
+def add_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain version of the S1 probe ``spike.add``."""
+    return x + y
+
+
+def double_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the S2 probe ``spike.double_blocks``."""
+    return 2 * x
+
+
+def prng_bits_ref(seed: torch.Tensor, shape) -> torch.Tensor:
+    """Plain version of the S3 probe ``spike.prng_bits``: the int32
+    patterns of ``random.bits(PRNGKey(seed[0]), shape)`` on seed's
+    device."""
+    return trandom.bits(trandom.PRNGKey(int(seed[0])), tuple(shape),
+                        seed.device)
+
+
+def column_sum_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the S4 probe ``spike.column_sum``: (R, C) → (1, C),
+    the rows added in order 0..R-1, as the Pallas ``fori_loop`` adds them."""
+    acc = torch.zeros(x.shape[1], dtype=x.dtype, device=x.device)
+    for i in range(x.shape[0]):
+        acc = acc + x[i]
+    return acc[None]

@@ -8,6 +8,8 @@ handed to both.  Tolerances are the reference's own
 differ in summation order only), 2e-2 in bfloat16 (one bf16 rounding of
 outputs of magnitude ~1).  The CUDA kernel is checked against the plain
 version in ``test_torch_cuda.py``."""
+import math
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -71,6 +73,7 @@ def test_attention_block_shape_sweep(bq, bk):
     (((4, 100, 64), (4, 100, 64)), {}, "multiples"),
     (((4, 128, 64), (4, 128, 64)), {"blk_k": 96}, "multiples"),
     (((4, 128, 64), (2, 128, 64)), {"group": 1}, "group"),
+    (((4, 128, 64), (4, 0, 64)), {}, "at least one key"),
 ])
 def test_attention_rejects_what_the_kernel_does_not_take(shapes, kw, match):
     qs, ks = shapes
@@ -86,8 +89,76 @@ def test_attention_rejects_mixed_dtypes():
         ops.attention(q, k, k)
 
 
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "fma"), (torch.bfloat16, 16, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 128, "fma")])
+def test_route_follows_dtype_and_head_dim(dtype, dh, want):
+    """bf16 at d 64/128 goes to the tensor cores, the rest to FMAs."""
+    assert fa.route(dtype, dh) == want
+
+
+@pytest.mark.parametrize("kernel,dtype,dh,match", [
+    ("wgmma", torch.float32, 64, "bfloat16"),
+    ("wgmma", torch.bfloat16, 32, "head dim"),
+    ("mma", torch.bfloat16, 64, "unknown"),
+    ("fma", torch.bfloat16, 64, "CUDA tensors"),
+])
+def test_launch_rejects_calls_its_kernel_does_not_take(kernel, dtype, dh,
+                                                       match):
+    q = torch.zeros((2, 128, dh), dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        fa.launch(q, q, q, kernel, causal=True, group=1)
+
+
 def test_cpu_call_launches_no_kernel():
     fa.reset_launches()
     q = torch.randn((2, 128, 16))
     ops.attention(q, q, q)
     assert fa.LAUNCHES["flash_attention"] == 0
+
+
+def _tensor_core_model(q, k, v, *, causal, group, tile=128):
+    """The wgmma kernel's arithmetic on the CPU: bf16 q, k, v; float32
+    scores over 128-key tiles in the log2 domain (scale times log2 e);
+    NEG_INF = -1e30 where col > row; online softmax with a float32 running
+    (m, l, acc); p rounded to bf16 before the p·v product, l summed from
+    the float32 p; out = acc / max(l, 1e-20) rounded to bf16."""
+    Hq, S, d = q.shape
+    T = k.shape[1]
+    kk = k.float().repeat_interleave(group, dim=0)
+    vv = v.float().repeat_interleave(group, dim=0)
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    m = torch.full((Hq, S), -1e30)
+    l = torch.zeros((Hq, S))
+    acc = torch.zeros((Hq, S, d))
+    rows = torch.arange(S)[:, None]
+    for c0 in range(0, T, tile):
+        s = torch.einsum("hsd,htd->hst", q.float(),
+                         kk[:, c0:c0 + tile]) * scale_log2
+        if causal:
+            cols = c0 + torch.arange(s.shape[-1])[None, :]
+            s = s.masked_fill(cols > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "hst,htd->hsd", p.to(torch.bfloat16).float(), vv[:, c0:c0 + tile])
+        m = m_new
+    return (acc / l.clamp_min(1e-20)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("KV,group", [(2, 1), (2, 4), (1, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_tensor_core_arithmetic_matches_pallas(dh, causal, KV, group):
+    """bf16 p in the p·v product stays within the bf16 tolerance of the
+    Pallas kernel (float32 p), across two key tiles."""
+    H, S = KV * group, 256
+    q, k, v = _inputs(H, KV, S, S, dh, "bfloat16", seed=dh + group)
+    want = jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=causal, group=group, blk_q=128, blk_k=128)
+    got = _tensor_core_model(*map(tensor_from_numpy, (q, k, v)),
+                             causal=causal, group=group)
+    assert _err(got, want) < TOL["bfloat16"]

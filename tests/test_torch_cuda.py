@@ -3,10 +3,11 @@
 These tests import no JAX, so they run on a machine with a card and
 PyTorch alone (``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``); without a card they skip.  Ids are integers:
-the R-MAT kernels and their plain versions must agree exactly.  Flash
-attention is held to 2e-5 in float32 (online vs full softmax differ in
-summation order; TF32 is off for the plain version's products) and 2e-2
-in bfloat16 (one bf16 rounding of outputs of magnitude ~1)."""
+the R-MAT kernels and their plain versions must agree exactly, and so
+must the probes S1–S3 (S4 within 1e-6).  Flash attention is held to 2e-5
+in float32 (online vs full softmax differ in summation order; TF32 is off
+for the plain version's products) and 2e-2 in bfloat16 (one bf16 rounding
+of outputs of magnitude ~1, and of p on the tensor-core route)."""
 import numpy as np
 import pytest
 import torch
@@ -15,7 +16,7 @@ from repro_torch import random as tr
 from repro_torch.configs import get_config
 from repro_torch.core import sampler
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, ref, rmat_sample as rs
+from repro_torch.kernels import ops, ref, rmat_sample as rs, spike
 from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
@@ -110,6 +111,48 @@ def test_flash_attention_matches_plain_version(cuda, dtype, d, causal):
     assert err < ATTN_TOL[dtype], err
 
 
+@pytest.mark.parametrize("group", [1, 4, 8, 16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_tensor_core_route_matches_plain_version(cuda, d, causal, group):
+    """bf16 with d 64 or 128 takes the wgmma kernel, one launch."""
+    q, k, v = _qkv(2, group, 384, 384, d, torch.bfloat16, cuda, seed=group)
+    fa.reset_launches()
+    got = ops.attention(q, k, v, causal=causal, group=group)
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_wgmma": 1,
+                           "flash_attention_fma": 0}
+    want = ref.attention_ref(q, k, v, causal=causal, group=group)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < ATTN_TOL[torch.bfloat16], err
+
+
+@pytest.mark.parametrize("S,T,d,causal", [(1000, 1000, 64, True),
+                                          (96, 160, 128, True),
+                                          (200, 72, 64, False),
+                                          (136, 136, 128, False)])
+def test_tensor_core_route_ragged(cuda, S, T, d, causal):
+    """Rows past S are not stored, keys past T are masked."""
+    q, k, v = _qkv(2, 4, S, T, d, torch.bfloat16, cuda, seed=S + T)
+    fa.reset_launches()
+    got = ops.attention(q, k, v, causal=causal, group=4, blk_q=8, blk_k=8)
+    assert fa.LAUNCHES["flash_attention_wgmma"] == 1
+    want = ref.attention_ref(q, k, v, causal=causal, group=4)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < ATTN_TOL[torch.bfloat16], err
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 16)])
+def test_fma_route_takes_float32_and_small_head_dims(cuda, dtype, d):
+    q, k, v = _qkv(2, 2, 128, 128, d, dtype, cuda)
+    fa.reset_launches()
+    ops.attention(q, k, v, group=2)
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_wgmma": 0,
+                           "flash_attention_fma": 1}
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_ragged_tiles(cuda, causal):
     """S and T that are no multiple of the kernel's 64-row tiles, S != T."""
@@ -146,3 +189,28 @@ def test_flash_forward_matches_einsum_on_card(cuda, B):
     assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
     einsum = Model(cfg, cuda).forward(params, {"tokens": toks}).logits
     assert (flash - einsum).abs().max().item() < 1e-4
+
+
+def test_probes_match_plain_versions(cuda):
+    """S1–S4 at the shapes of ``scripts/spike_pallas.py``, one launch each."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 128), generator=gen).to(cuda)
+    y = torch.randn((8, 128), generator=gen).to(cuda)
+    big = torch.randn((1024, 256), generator=gen).to(cuda)
+    seed = torch.tensor([42], dtype=torch.int32, device=cuda)
+    spike.reset_launches()
+    assert torch.equal(spike.add(x, y), ref.add_ref(x, y))
+    assert torch.equal(spike.double_blocks(big), ref.double_ref(big))
+    assert torch.equal(spike.prng_bits(seed, (8, 128)),
+                       ref.prng_bits_ref(seed, (8, 128)))
+    err = (spike.column_sum(x) - ref.column_sum_ref(x)).abs().max().item()
+    assert err <= 1e-6
+    assert spike.LAUNCHES == {"add": 1, "double_blocks": 1, "prng_bits": 1,
+                              "column_sum": 1}
+
+
+def test_prng_probe_is_the_random_stream(cuda):
+    """S3's words are ``random.bits`` at any length, past one grid pass."""
+    seed = torch.tensor([-5], dtype=torch.int32, device=cuda)
+    got = spike.prng_bits(seed, (3, 1 << 20))
+    assert torch.equal(got.cpu(), tr.bits(tr.PRNGKey(-5), (3, 1 << 20)))

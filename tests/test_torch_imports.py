@@ -32,4 +32,4 @@ def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"random.py", "rmat_sample.py", "pipeline.py",
             "flash_attention.py", "engine.py", "transformer.py",
-            "layers.py", "chip_smoke.py"} <= names
+            "layers.py", "spike.py", "chip_smoke.py"} <= names
