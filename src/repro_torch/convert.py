@@ -1,9 +1,10 @@
-"""Carry a fitted pipeline across: a flat dict of numpy arrays → the
+"""Carry a fitted pipeline across: a flat dict of numpy arrays ↔ the
 port's ``SyntheticGraphPipeline``.
 
 The state is framework-free, so a fit made by the JAX package
-(``scripts/export_torch_state.py`` writes one) loads here without JAX.
-Keys (``{j}``/``{i}`` are column / block indices):
+(``scripts/export_torch_state.py`` writes one) loads here without JAX,
+and a fit made by the port (``state_from_pipeline``) saves in the same
+format.  Keys (``{j}``/``{i}`` are column / block indices):
 
 =================================  ======================================
 ``struct/{a,b,c,d,noise}``         the ``KroneckerFit`` (float)
@@ -36,10 +37,10 @@ import torch
 
 from repro_torch.core.aligner import (AlignerConfig, GBDTAligner,
                                       RandomAligner)
-from repro_torch.core.features import (GANConfig, GANFeatureGenerator,
-                                       GeneratorMLP, TableCodec)
+from repro_torch.core.features import (MLP, GANConfig, GANFeatureGenerator,
+                                       TableCodec)
 from repro_torch.core.gbdt import (GBDTClassifier, GBDTRegressor,
-                                   forest_from_state)
+                                   PackedForest, forest_from_state)
 from repro_torch.core.pipeline import SyntheticGraphPipeline
 from repro_torch.core.structure import KroneckerFit
 from repro_torch.models.params import tree_map
@@ -95,29 +96,99 @@ def pipeline_from_state(state: State, device="cuda") -> SyntheticGraphPipeline:
     cfg = GANConfig(d_z=int(state["gan/d_z"]), n_blocks=n_blocks,
                     sample_batch=int(state["gan/sample_batch"]))
     w_in = state["gan/g/in/w"]
-    gen = GeneratorMLP(cfg.d_z, w_in.shape[1], n_blocks, codec.enc_dim)
+    gen = MLP(cfg.d_z, w_in.shape[1], n_blocks, codec.enc_dim)
     gen.load_jax_params(_gan_tree(state, n_blocks))
-    features = GANFeatureGenerator(schema, codec, gen, cfg, device)
+    features = GANFeatureGenerator(schema, cfg, device=device, codec=codec,
+                                   generator=gen)
 
     if _str(state["aligner/kind"]) == "random":
         aligner = RandomAligner(schema, kind=feature_kind)
     else:
-        conts = [GBDTRegressor(forest_from_state(state, f"aligner/cont/{j}",
-                                                 device))
-                 for j in range(schema.n_cont)]
+        conts = [GBDTRegressor(packed=forest_from_state(
+            state, f"aligner/cont/{j}", device))
+            for j in range(schema.n_cont)]
         cats = []
         for j in range(schema.n_cat):
             pk = forest_from_state(state, f"aligner/cat/{j}", device)
             cats.append(None if pk is None else GBDTClassifier(
-                int(state[f"aligner/cat/{j}/n_classes"]), pk))
+                int(state[f"aligner/cat/{j}/n_classes"]), packed=pk))
         aligner = GBDTAligner(
-            schema, conts, cats,
-            [float(q) for q in np.atleast_1d(state["aligner/col_quality"])],
-            AlignerConfig(int(state["aligner/max_cat_classes"])),
-            kind=feature_kind)
-    return SyntheticGraphPipeline(fit, features, aligner,
-                                  bool(state["pipe/bipartite"]),
-                                  feature_kind, device)
+            schema,
+            AlignerConfig(max_cat_classes=int(
+                state["aligner/max_cat_classes"])),
+            kind=feature_kind, cont_models=conts, cat_models=cats,
+            col_quality=[float(q) for q in
+                         np.atleast_1d(state["aligner/col_quality"])])
+    return SyntheticGraphPipeline.fitted(fit, features, aligner,
+                                         bool(state["pipe/bipartite"]),
+                                         feature_kind, device)
+
+
+def _put_forest(out: State, prefix: str, pk: PackedForest,
+                n_classes=None) -> None:
+    out[f"{prefix}/E"] = pk.E.cpu().numpy()
+    out[f"{prefix}/code"] = pk.code.cpu().numpy()
+    out[f"{prefix}/leaf_bot"] = pk.leaf_bot.cpu().numpy()
+    out[f"{prefix}/base"] = pk.base.cpu().numpy()
+    out[f"{prefix}/lr"] = np.float32(pk.lr)
+    out[f"{prefix}/depth"] = np.int64(pk.depth)
+    if n_classes is not None:
+        out[f"{prefix}/n_classes"] = np.int64(n_classes)
+
+
+def state_from_pipeline(pipe: SyntheticGraphPipeline) -> State:
+    """The state of a fitted port pipeline (kronecker + GAN), the inverse
+    of :func:`pipeline_from_state`: the keys, dtypes and shapes that
+    ``scripts/export_torch_state.py`` writes for a JAX-made fit."""
+    if pipe.struct_kind != "kronecker" or pipe.feat_kind != "gan":
+        raise ValueError("the state carries kronecker + gan pipelines")
+    st = pipe.struct
+    out = {f"struct/{k}": np.float64(getattr(st, k))
+           for k in ("a", "b", "c", "d", "noise")}
+    out.update({f"struct/{k}": np.int64(getattr(st, k))
+                for k in ("n", "m", "E")})
+    out["struct/bipartite"] = np.bool_(st.bipartite)
+    out["pipe/feature_kind"] = np.str_(pipe.feature_kind)
+    out["pipe/bipartite"] = np.bool_(pipe.bipartite)
+    out["schema/n_cont"] = np.int64(pipe.schema.n_cont)
+    out["schema/cat_cards"] = np.asarray(pipe.schema.cat_cards, np.int64)
+
+    gan = pipe.features
+    out["gan/n_modes"] = np.int64(gan.codec.n_modes)
+    out["gan/d_z"] = np.int64(gan.cfg.d_z)
+    out["gan/n_blocks"] = np.int64(gan.cfg.n_blocks)
+    out["gan/sample_batch"] = np.int64(gan.cfg.sample_batch)
+    for j, v in enumerate(gan.codec.vgms):
+        for f in ("weights", "means", "stds", "active"):
+            out[f"gan/vgm/{j}/{f}"] = np.asarray(getattr(v, f))
+    g = gan.generator
+
+    def put(key, param):
+        out[key] = param.detach().cpu().numpy().astype(np.float32)
+
+    for name, lin in (("in", g.inp), ("out", g.out)):
+        put(f"gan/g/{name}/w", lin.w)
+        put(f"gan/g/{name}/b", lin.b)
+    for i, blk in enumerate(g.blocks):
+        p = f"gan/g/blocks/{i}"
+        put(f"{p}/bn/scale", blk.bn.scale)
+        put(f"{p}/bn/bias", blk.bn.bias)
+        put(f"{p}/fc/w", blk.fc.w)
+        put(f"{p}/fc/b", blk.fc.b)
+
+    al = pipe.aligner
+    if isinstance(al, RandomAligner):
+        out["aligner/kind"] = np.str_("random")
+        return out
+    out["aligner/kind"] = np.str_("xgboost")
+    out["aligner/col_quality"] = np.asarray(al.col_quality, np.float64)
+    out["aligner/max_cat_classes"] = np.int64(al.cfg.max_cat_classes)
+    for j, mdl in enumerate(al.cont_models):
+        _put_forest(out, f"aligner/cont/{j}", mdl.packed)
+    for j, mdl in enumerate(al.cat_models):
+        if mdl is not None:
+            _put_forest(out, f"aligner/cat/{j}", mdl.packed, mdl.n_classes)
+    return out
 
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:

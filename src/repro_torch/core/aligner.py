@@ -1,9 +1,13 @@
-"""Aligner (paper §3.4, App. 7), inference side: map generated feature
-rows onto generated structure so structure↔feature correlations of the
-original graph survive.
+"""Aligner (paper §3.4, App. 7): map generated feature rows onto generated
+structure so structure↔feature correlations of the original graph
+survive.
 
 Structural features per node (degree, PageRank, Katz) feed per-column
-GBDT predictors (edge columns see ``[F_S(src), F_S(dst)]``).  Rows are
+GBDT predictors (edge columns see ``[F_S(src), F_S(dst)]``).  ``fit``
+computes them on the graph's device, fits the forests on the host
+(``gbdt``) and scores each column on a 20% holdout through the device
+predictors: R² for continuous columns, accuracy over the majority rate
+for categorical ones; the two best columns key the matching.  Rows are
 assigned by rank matching on the two best-predicted columns: both the
 predictions and the generated rows are keyed, sorted, and matched by
 rank.  The rank-matching noise is drawn from the caller's numpy
@@ -20,13 +24,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.feature_engine import batched_rows
-from repro_torch.core.gbdt import GBDTClassifier, GBDTRegressor
+from repro_torch.core.gbdt import GBDTClassifier, GBDTConfig, GBDTRegressor
 from repro_torch.graph.ops import Graph, node_features
 from repro_torch.tabular.schema import TableSchema
 
 
 @dataclasses.dataclass
 class AlignerConfig:
+    gbdt: GBDTConfig = dataclasses.field(
+        default_factory=lambda: GBDTConfig(n_rounds=100, max_depth=5, lr=0.1,
+                                           alpha=10.0))
     max_cat_classes: int = 16     # one-vs-rest cap for categorical columns
 
 
@@ -53,19 +60,22 @@ def _lexsort(secondary: torch.Tensor, primary: torch.Tensor
 
 
 class GBDTAligner:
-    """Per-column GBDT predictor + rank matching."""
+    """Per-column GBDT predictor + rank matching.  Built unfitted (then
+    ``fit``), or fitted from its models and their holdout qualities
+    (``repro_torch.convert``)."""
 
-    def __init__(self, schema: TableSchema, cont_models: List[GBDTRegressor],
-                 cat_models: List[Optional[GBDTClassifier]],
-                 col_quality: List[float],
-                 cfg: Optional[AlignerConfig] = None, kind: str = "edge"):
+    def __init__(self, schema: TableSchema,
+                 cfg: Optional[AlignerConfig] = None, kind: str = "edge", *,
+                 cont_models: Optional[List[GBDTRegressor]] = None,
+                 cat_models: Optional[List[Optional[GBDTClassifier]]] = None,
+                 col_quality: Optional[List[float]] = None):
         assert kind in ("edge", "node")
         self.schema = schema
         self.cfg = cfg if cfg is not None else AlignerConfig()
         self.kind = kind
-        self.cont_models = list(cont_models)
-        self.cat_models = list(cat_models)
-        self.col_quality = list(col_quality)
+        self.cont_models = list(cont_models or [])
+        self.cat_models = list(cat_models or [])
+        self.col_quality = list(col_quality or [])
 
     def _inputs(self, g: Graph) -> torch.Tensor:
         feats = node_features(g)
@@ -73,6 +83,50 @@ class GBDTAligner:
             return feats[: g.n_src] if not g.bipartite else feats
         dst = g.dst + (g.n_src if g.bipartite else 0)
         return torch.cat([feats[g.src], feats[dst]], dim=1)
+
+    def fit(self, g: Graph, cont: np.ndarray, cat: np.ndarray
+            ) -> "GBDTAligner":
+        """Fit one forest (stack) per column on the first 80% of rows and
+        score it on the rest.  With no holdout row every quality is 0.5;
+        categorical columns above ``max_cat_classes`` get no model."""
+        X_dev = self._inputs(g).to(torch.float32)
+        X = X_dev.cpu().numpy()
+        n = min(len(X), len(cont) if cont.size else len(X),
+                len(cat) if cat.size else len(X))
+        X, X_dev = X[:n], X_dev[:n]
+        n_tr = max(1, int(n * 0.8))
+        no_holdout = n_tr >= n
+        dev = X_dev.device
+        self.col_quality = []
+        self.cont_models = []
+        for j in range(self.schema.n_cont):
+            m = GBDTRegressor(self.cfg.gbdt, device=dev).fit(
+                X[:n_tr], cont[:n_tr, j])
+            self.cont_models.append(m)
+            if no_holdout:
+                self.col_quality.append(0.5)
+                continue
+            y = cont[n_tr:n, j]
+            p = m.predict(X_dev[n_tr:n]).cpu().numpy()
+            var = y.var() + 1e-12
+            self.col_quality.append(
+                float(max(0.0, 1.0 - ((p - y) ** 2).mean() / var)))
+        self.cat_models = []
+        for j, card in enumerate(self.schema.cat_cards):
+            if card > self.cfg.max_cat_classes:
+                self.cat_models.append(None)  # too many classes: rank on cont
+                continue
+            m = GBDTClassifier(card, self.cfg.gbdt, device=dev).fit(
+                X[:n_tr], cat[:n_tr, j])
+            self.cat_models.append(m)
+            if no_holdout:
+                self.col_quality.append(0.5)
+                continue
+            y = cat[n_tr:n, j]
+            acc = float((m.predict(X_dev[n_tr:n]).cpu().numpy() == y).mean())
+            base = max(np.bincount(y, minlength=card)) / max(len(y), 1)
+            self.col_quality.append(max(0.0, acc - float(base)))
+        return self
 
     def _col_costs(self) -> List[int]:
         """Forest count behind each column."""
@@ -173,6 +227,9 @@ class RandomAligner:
     def __init__(self, schema: TableSchema, kind: str = "edge"):
         self.schema = schema
         self.kind = kind
+
+    def fit(self, g: Graph, cont, cat) -> "RandomAligner":
+        return self
 
     def align(self, g: Graph, cont_rows, cat_rows, rng=None, batch=None):
         """Truncates to the graph's edge/node count like the GBDT path;

@@ -10,6 +10,7 @@ float tolerance, not bit for bit.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -52,6 +53,17 @@ def out_degrees(g: Graph) -> torch.Tensor:
 def in_degrees(g: Graph) -> torch.Tensor:
     _check_dense_degrees(g.n_dst, "in_degrees")
     return torch.bincount(g.dst, minlength=g.n_dst)
+
+
+def degree_histogram(degrees: torch.Tensor, max_deg: Optional[int] = None
+                     ) -> torch.Tensor:
+    """c_k = #nodes with degree k (k = 0..max_deg); degrees above
+    ``max_deg`` count in the last bin."""
+    if max_deg is None:
+        max_deg = int(degrees.max()) if degrees.numel() else 0
+    _check_dense_degrees(max_deg + 1, "degree_histogram")
+    return torch.bincount(torch.clamp(degrees, 0, max_deg),
+                          minlength=max_deg + 1)
 
 
 def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int

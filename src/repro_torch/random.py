@@ -13,7 +13,8 @@ seed gives the same edges in both packages.  This module is the part of
 A key is an int64 tensor of shape ``(2,)`` (or ``(n, 2)`` for a batch of
 keys from ``split``) holding two uint32 words.  Keys are tiny and always
 live on the CPU; the draws (``bits``, ``uniform``, ``normal``,
-``gumbel``, ``randint``) run on the ``device`` they are asked for.  Word
+``gumbel``, ``randint``, ``bernoulli``) run on the ``device`` they are
+asked for.  Word
 arithmetic is done in int64 tensors masked to 32 bits, because torch has
 no full uint32 arithmetic.  ``bits`` returns the uint32 words as their
 int32 bit patterns (``np.asarray(t).view(np.uint32)`` recovers them).
@@ -194,3 +195,11 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
     off = (((higher % span) * mult) & MASK) + (lower % span)
     off = (off & MASK) % span
     return (off + minval).to(torch.int32)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int],
+              device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low") for a float
+    ``p``: ``uniform(key, shape) < p``, with ``p`` rounded to float32."""
+    u = uniform(key, shape, device=device)
+    return u < torch.tensor(p, dtype=torch.float32, device=u.device)

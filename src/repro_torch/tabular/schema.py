@@ -9,6 +9,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class TableSchema:
@@ -24,3 +26,11 @@ class TableSchema:
         return tuple(int(min(600, round(1.6 * c ** 0.56)))
                      for c in self.cat_cards)
 
+
+
+def infer_schema(cont: np.ndarray, cat: np.ndarray) -> TableSchema:
+    """The schema of a host table: ``n_cont`` columns and, per categorical
+    column, ``max + 1`` categories (1 for an empty table)."""
+    cards = tuple(int(cat[:, j].max()) + 1 if cat.shape[0] else 1
+                  for j in range(cat.shape[1]))
+    return TableSchema(n_cont=cont.shape[1], cat_cards=cards)

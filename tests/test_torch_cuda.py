@@ -7,7 +7,10 @@ the R-MAT kernels and their plain versions must agree exactly, and so
 must the probes S1–S3 (S4 within 1e-6).  Flash attention is held to 2e-5
 in float32 (online vs full softmax differ in summation order; TF32 is off
 for the plain version's products) and 2e-2 in bfloat16 (one bf16 rounding
-of outputs of magnitude ~1, and of p on the tensor-core route)."""
+of outputs of magnitude ~1, and of p on the tensor-core route).  A fit on
+the card gives the CPU's bit-pair counts, structure and VGMs exactly;
+its GAN weights after 10 steps within 1e-5 of the CPU's (cuBLAS sums in
+another order) and its holdout qualities within 0.02."""
 import numpy as np
 import pytest
 import torch
@@ -214,3 +217,56 @@ def test_prng_probe_is_the_random_stream(cuda):
     seed = torch.tensor([-5], dtype=torch.int32, device=cuda)
     got = spike.prng_bits(seed, (3, 1 << 20))
     assert torch.equal(got.cpu(), tr.bits(tr.PRNGKey(-5), (3, 1 << 20)))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_bitpair_counts_on_card_equal_cpu(cuda, wide):
+    from repro_torch.core.fit_engine import BitPairMLE
+    n, m = (40, 36) if wide else (12, 9)
+    g = torch.Generator().manual_seed(n)
+    src = torch.randint(0, 2 ** n, (300_000,), generator=g)
+    dst = torch.randint(0, 2 ** m, (300_000,), generator=g)
+    if not wide:
+        src, dst = src.to(torch.int32), dst.to(torch.int32)
+    want = BitPairMLE(n, m, block=100_000).update(src, dst)
+    got = BitPairMLE(n, m, block=100_000).update(src.to(cuda), dst.to(cuda))
+    np.testing.assert_array_equal(got.counts, want.counts)
+
+
+def test_small_fit_on_card_equals_cpu(cuda):
+    """The structure fit, schema and VGMs equal the CPU's exactly; the GAN
+    and the aligner's qualities to the tolerances of
+    ``tests/test_torch_fit.py`` (weights after 10 steps 1e-5, qualities
+    0.02); generation from the card's fit launches K2."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.core.aligner import AlignerConfig
+    from repro_torch.core.gbdt import GBDTConfig
+    from repro_torch.core.pipeline import SyntheticGraphPipeline
+    from repro_torch.data.reference import tabformer_like
+    table = tabformer_like(n_src=256, n_dst=64, n_edges=2000)
+    pipes = {dev: SyntheticGraphPipeline(
+        noise=0.03, gan_steps=10,
+        aligner_cfg=AlignerConfig(gbdt=GBDTConfig(n_rounds=10)),
+        device=dev).fit(*table) for dev in ("cpu", "cuda")}
+    cpu, card = pipes["cpu"], pipes["cuda"]
+    assert dataclasses.asdict(card.struct) == dataclasses.asdict(cpu.struct)
+    s_cpu = convert.state_from_pipeline(cpu)
+    s_card = convert.state_from_pipeline(card)
+    assert set(s_card) == set(s_cpu)
+    for k in s_cpu:
+        assert s_card[k].shape == s_cpu[k].shape, k
+        if k.startswith(("struct/", "schema/", "gan/vgm/", "pipe/")):
+            np.testing.assert_array_equal(s_card[k], s_cpu[k], err_msg=k)
+        if k.startswith("gan/g/"):
+            np.testing.assert_allclose(s_card[k], s_cpu[k], rtol=0,
+                                       atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(card.aligner.col_quality,
+                               cpu.aligner.col_quality, rtol=0, atol=0.02)
+    rs.reset_launches()
+    g, c, k = card.generate(seed=0, chunked=True)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["rmat_sample_prng"] > 0
+    g_cpu, _, _ = cpu.generate(seed=0, chunked=True, backend="cuda_prng")
+    torch.testing.assert_close(g.src.cpu(), g_cpu.src, rtol=0, atol=0)
+    assert torch.isfinite(c).all()

@@ -32,4 +32,5 @@ def test_scan_sees_the_package():
     names = {p.name for p in FILES}
     assert {"random.py", "rmat_sample.py", "pipeline.py",
             "flash_attention.py", "engine.py", "transformer.py",
-            "layers.py", "spike.py", "chip_smoke.py"} <= names
+            "layers.py", "spike.py", "metrics.py", "fit_engine.py",
+            "reference.py", "chip_smoke.py"} <= names

@@ -169,6 +169,42 @@ def test_asset_generates_on_cpu():
     assert ((cat >= 0) & (cat < cards)).all()
 
 
+@pytest.mark.parametrize("source", ["port_fit", "asset"])
+def test_state_from_pipeline_round_trip(source):
+    """``pipeline_from_state(state_from_pipeline(p))`` generates what ``p``
+    generates, for a fit made by the port and for the committed asset."""
+    from repro_torch.core.aligner import AlignerConfig
+    from repro_torch.core.gbdt import GBDTConfig as TGBDTConfig
+    from repro_torch.core.pipeline import SyntheticGraphPipeline
+    from repro_torch.data.reference import tabformer_like as ttabformer_like
+    if source == "asset":
+        pipe = convert.pipeline_from_state(convert.load_state(ASSET),
+                                           device="cpu")
+    else:
+        pipe = SyntheticGraphPipeline(
+            noise=0.03, gan_steps=10,
+            aligner_cfg=AlignerConfig(gbdt=TGBDTConfig(n_rounds=10)),
+            device="cpu").fit(*ttabformer_like(n_src=256, n_dst=64,
+                                               n_edges=2000))
+    state = convert.state_from_pipeline(pipe)
+    if source == "asset":
+        asset = convert.load_state(ASSET)
+        assert set(state) == set(asset)
+        for k in asset:
+            np.testing.assert_array_equal(state[k], asset[k], err_msg=k)
+            assert state[k].dtype == asset[k].dtype, k
+    back = convert.pipeline_from_state(state, device="cpu")
+    g1, c1, k1 = pipe.generate(seed=4, chunked=True)
+    g2, c2, k2 = back.generate(seed=4, chunked=True)
+    np.testing.assert_array_equal(g2.src.numpy(), g1.src.numpy())
+    np.testing.assert_array_equal(g2.dst.numpy(), g1.dst.numpy())
+    assert _row_match(c1, k1, c2, k2) >= 0.99
+    X = pipe.aligner._inputs(g1)
+    for a, b in zip(pipe.aligner.cont_models, back.aligner.cont_models):
+        np.testing.assert_allclose(b.predict(X).numpy(), a.predict(X).numpy(),
+                                   rtol=0, atol=1e-5)
+
+
 def test_batched_decode_matches_reference(fitted):
     """``BatchedDecoder.decode`` over several padded blocks: same seed
     from the numpy rng, per-block ``fold_in`` keys."""
