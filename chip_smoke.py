@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's paths on the card:
+``nvcc`` per library, all at once) and drives the port's paths on the card:
 graph generation (phases 2-7), fitting (phase 4b), the dense LM's scoring
 forward and serving engine (phases 8-10) and the toolchain probes S1-S4
 (phase 12):
@@ -72,10 +72,23 @@ forward and serving engine (phases 8-10) and the toolchain probes S1-S4
     phase 8's bf16 shape beside the FMA kernel at the same shape and
     ``scaled_dot_product_attention``, and the probes of phase 12;
 12. the probes S1-S4 of ``scripts/spike_pallas.py`` at its shapes and on
-    its inputs, one launch each with the counters at 0, then on random
-    inputs of the same shapes: each equal to its plain version (S4 within
-    1e-6), timed beside ``torch.add``, ``torch.mul`` and ``sum(0)`` (S3
-    has no library call: ``torch.randint`` is Philox, not threefry).
+    its inputs, one launch each with the counters at 0 (S1 and S2 through
+    their torch ops, whose library must be loaded), then on random inputs
+    of the same shapes: each equal to its plain version (S4 within 1e-6),
+    timed per call in loops of 200 beside ``torch.add``, ``torch.mul``
+    and ``sum(0)``, five rounds of kernel then library, the least of each
+    (S3 has no library call: ``torch.randint`` is Philox, not threefry),
+    and each one's device time per call, kernel and library, from
+    ``torch.profiler``'s kernel events over such a loop.
+
+Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
+``spike_elementwise.cu``) beside the ``ctypes`` libraries, logs each
+library's build seconds, and fails if the elementwise kernel's SASS holds
+no 16-byte loads and stores.  Every ``kernels`` row carries ``device_us``
+and ``library_device_us`` (per call, from the profiler; null where there
+is no library call, or where the profiler did not keep every call's
+kernel events), with ``device_calls`` (the calls traced) and
+``device_kept`` / ``library_device_kept`` (the kernel events kept).
 
 Every phase raises on failure.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -183,6 +196,56 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+#: spin kernels (``torch.cuda._sleep``) traced before and after a timed
+#: loop: in a long process the profiler was seen to drop one to three
+#: kernel events of a trace, and with both edges padded by kernels that
+#: are not read it kept every event of the loop
+PROFILER_PAD = 8
+SPIN_CYCLES = 20_000
+#: rounds of (kernel, library) loops per probe; each takes its least: the
+#: host's time per call varies by a fifth from loop to loop
+PROBE_ROUNDS = 5
+
+
+def device_us(fn, reps: int) -> tuple:
+    """Device time per call of ``fn``, the names of the kernels it ran and
+    how many of their events the profiler kept: ``torch.profiler``'s CUDA
+    events over a loop of ``reps`` calls (after one untraced call, between
+    ``PROFILER_PAD`` spin kernels on each side), their durations summed
+    over the loop and divided by ``reps``.  The time is None unless every
+    kernel kept a whole multiple of ``reps`` events, that is unless every
+    call was seen."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        for _ in range(PROFILER_PAD):
+            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad()
+        for _ in range(reps):
+            fn()
+        pad()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    kept = sum(map(len, by_name.values()))
+    whole = by_name and all(len(d) % reps == 0 for d in by_name.values())
+    per_call = (sum(map(sum, by_name.values())) / reps if whole else None)
+    return per_call, sorted(by_name), kept
+
+
+def us_text(us) -> str:
+    return "not measured" if us is None else f"{us:.3f} us"
+
+
 def max_word_err(got, want) -> int:
     """max |kernel − plain| over the (hi, lo) id words of both ends."""
     import torch
@@ -251,9 +314,25 @@ def read_sass(build, library) -> str:
 TC_OPCODES = ("HGMMA", "UTMALDG", "SYNCS")
 
 
-def sass_opcodes(sass: str, kernel: str) -> dict:
-    """Static counts of ``TC_OPCODES`` in each SASS function whose name
-    holds ``kernel`` (one per template instance)."""
+def tc_opcode(op: str):
+    """``TC_OPCODES`` by their first word (``HGMMA.64x64x16.F32.BF16``)."""
+    head = op.split(".")[0]
+    return head if head in TC_OPCODES else None
+
+
+def wide_access(op: str):
+    """A 16-byte global load or store (``LDG.E.128``, ``STG.E.128`` and
+    their cache variants) as ``LDG.128``/``STG.128``."""
+    words = op.split(".")
+    return (f"{words[0]}.128" if words[0] in ("LDG", "STG") and "128" in words
+            else None)
+
+
+def sass_opcodes(sass: str, kernel: str, names=TC_OPCODES,
+                 classify=tc_opcode) -> dict:
+    """Static counts of the opcodes ``classify`` maps to one of ``names``
+    in each SASS function whose name holds ``kernel`` (one per template
+    instance)."""
     import re
     counts, name = {}, None
     for line in sass.splitlines():
@@ -261,12 +340,13 @@ def sass_opcodes(sass: str, kernel: str) -> dict:
             fn = line.split("Function :", 1)[1].strip()
             name = fn if kernel in fn else None
             if name:
-                counts[name] = dict.fromkeys(TC_OPCODES, 0)
+                counts[name] = dict.fromkeys(names, 0)
             continue
         ins = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]\s+)?"
                        r"([A-Z][\w.]*)", line)
-        if name and ins and ins.group(1).split(".")[0] in TC_OPCODES:
-            counts[name][ins.group(1).split(".")[0]] += 1
+        op = classify(ins.group(1)) if name and ins else None
+        if op:
+            counts[name][op] += 1
     return counts
 
 
@@ -747,6 +827,7 @@ def phase_timing(tr, ref, rs, torch, errs: dict, launches: dict,
         ms = cuda_ms(kern, 10)
         ms2 = cuda_ms(kern, 10)
         plain_ms2 = cuda_ms(plain, 2)
+        dev_us, dev_names, kept = device_us(kern, 5)
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmat_sample.cu",
@@ -759,10 +840,13 @@ def phase_timing(tr, ref, rs, torch, errs: dict, launches: dict,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
             "bound_ms": bound_s * 1e3, "bound_by": by, "library_ms": None,
-            "shape": shape})
-        log(f"timing {name}: kernel {ms:.4f}/{ms2:.4f} ms, plain "
-            f"{plain_ms:.3f}/{plain_ms2:.3f} ms, bound {bound_s * 1e3:.4f} "
-            f"ms ({by}), {shape}")
+            "device_us": dev_us, "library_device_us": None,
+            "device_calls": 5, "device_kept": kept,
+            "library_device_kept": None, "shape": shape})
+        log(f"timing {name}: kernel {ms:.4f}/{ms2:.4f} ms (device "
+            f"{us_text(dev_us)}: {', '.join(dev_names)}, {kept} events of 5 "
+            f"calls kept), plain {plain_ms:.3f}/{plain_ms2:.3f} ms, bound "
+            f"{bound_s * 1e3:.4f} ms ({by}), {shape}")
     log("library_ms: no single PyTorch call computes an R-MAT descend, so "
         "there is no library yardstick")
     return rows
@@ -1087,6 +1171,8 @@ def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
     lib_ms2 = cuda_ms(library, 20)
     fma_ms2 = cuda_ms(fma, 5)
     plain_ms2 = cuda_ms(plain, 3)
+    dev_us, _, kept = device_us(kern, 5)
+    lib_dev_us, _, lib_kept = device_us(library, 5)
     bound_s, by = flash_bound_s(hq, hkv, s, s, d, True, "bfloat16")
     shape = (f"Hq={hq} Hkv={hkv} S=T={s} d={d} causal bf16: the scoring "
              f"path's attention ({LM_ARCH}, B={LM_B})")
@@ -1095,7 +1181,8 @@ def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
         f"{fma_ms:.4f}/{fma_ms2:.4f} ms, plain {plain_ms:.3f}/"
         f"{plain_ms2:.3f} ms, sdpa {lib_ms:.4f}/{lib_ms2:.4f} ms (max|sdpa "
         f"- plain| {lib_err:.3g}), bound {bound_s * 1e3:.4f} ms ({by}), "
-        f"{shape}")
+        f"device per call: kernel {us_text(dev_us)} ({kept} events of 5 "
+        f"calls kept), sdpa {us_text(lib_dev_us)} ({lib_kept}); {shape}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "replaces": "src/repro/kernels/flash_attention.py:62",
@@ -1103,6 +1190,9 @@ def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
             "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
             "bound_ms": bound_s * 1e3, "bound_by": by,
             "library_ms": min(lib_ms, lib_ms2),
+            "device_us": dev_us, "library_device_us": lib_dev_us,
+            "device_calls": 5, "device_kept": kept,
+            "library_device_kept": lib_kept,
             "fma_ms": min(fma_ms, fma_ms2),
             "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "shape": shape}
@@ -1146,6 +1236,9 @@ def phase_probes(spike, ref, torch) -> list:
     launches = dict(spike.LAUNCHES)
     log(f"probes: the spike's shapes and inputs, launches {launches}; sums "
         f"{[float(o.float().sum()) for o in outs]}")
+    loaded = {str(Path(lib).resolve()) for lib in torch.ops.loaded_libraries}
+    check(str(spike.OPS_LIBRARY.path().resolve()) in loaded,
+          "S1/S2 ran without loading their torch-op library")
     rows = []
     for (name, tpu, kern, plain, lib, spike_in, args), out in zip(probes,
                                                                   outs):
@@ -1170,24 +1263,60 @@ def phase_probes(spike, ref, torch) -> list:
             by_ops = x.numel() / PEAK_FLOPS["float32"]
         bound_s, by = ((by_ops, "operations") if by_ops > by_bytes
                        else (by_bytes, "bytes"))
-        ms = min(cuda_ms(lambda: kern(*args), 200) for _ in range(2))
+        def kern_call():
+            return kern(*args)
+
+        def lib_call():
+            return lib(*args)
+
+        # in turns, PROBE_ROUNDS times: kernel, library
+        loops = [(cuda_ms(kern_call, 200),
+                  None if lib is None else cuda_ms(lib_call, 200))
+                 for _ in range(PROBE_ROUNDS)]
+        ms = min(k for k, _ in loops)
+        lib_ms = None if lib is None else min(l for _, l in loops)
+        lib_dev_us = lib_kept = None
+        lib_text = "none"
         plain_ms = min(cuda_ms(lambda: plain(*args), 200) for _ in range(2))
-        lib_ms = (None if lib is None else
-                  min(cuda_ms(lambda: lib(*args), 200) for _ in range(2)))
+        dev_us, dev_names, kept = device_us(kern_call, 200)
+        if lib is not None:
+            lib_dev_us, lib_names, lib_kept = device_us(lib_call, 200)
+            lib_text = (f"{lib_ms * 1e3:.2f} us, device "
+                        f"{us_text(lib_dev_us)} ({', '.join(lib_names)}; "
+                        f"{lib_kept} events of 200 kept); kernel/library "
+                        f"{ms / lib_ms:.3f} per call")
+            if dev_us is not None and lib_dev_us is not None:
+                lib_text += f", {dev_us / lib_dev_us:.3f} on the device"
         dims = args[1] if name == "prng_bits" else tuple(x.shape)
         shape = (f"{dims}: the spike's shape; launch-bound, times per call "
                  "in a loop of 200")
-        log(f"timing probe {name}: kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, library "
-            f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
-            f"bound {bound_s * 1e9:.2f} ns ({by}), max|err| {err:.3g}, "
-            f"{shape}")
+        log(f"timing probe {name}: loops of 200 in turns, us per call "
+            "(kernel, library): " + ", ".join(
+                f"({k * 1e3:.2f}, {'-' if l is None else f'{l * 1e3:.2f}'})"
+                for k, l in loops))
+        log(f"timing probe {name}: kernel {ms * 1e3:.2f} us per call, device "
+            f"{us_text(dev_us)} ({', '.join(dev_names)}; {kept} events of "
+            f"200 kept); plain "
+            f"{plain_ms * 1e3:.2f} us; library {lib_text}; bound "
+            f"{bound_s * 1e9:.2f} ns ({by}), max|err| {err:.3g}, {shape}")
+        source, binding = "spike.cu", None
+        if name in ("add", "double_blocks"):
+            check(any("elementwise_kernel" in n for n in dev_names),
+                  f"probe {name} ran {dev_names}, not the elementwise kernel")
+            source = "spike_elementwise.cu"
+            binding = ("src/repro_torch/kernels/csrc/spike_ops.cpp: "
+                       f"torch.ops.repro_spike.{name}")
         rows.append({"name": f"spike_{name}", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/spike.cu",
+                     "source": f"src/repro_torch/kernels/csrc/{source}",
                      "replaces": tpu, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_s * 1e3, "bound_by": by,
-                     "library_ms": lib_ms, "shape": shape})
+                     "library_ms": lib_ms, "device_us": dev_us,
+                     "library_device_us": lib_dev_us, "device_calls": 200,
+                     "device_kept": kept, "library_device_kept": lib_kept,
+                     "shape": shape})
+        if binding:
+            rows[-1]["binding"] = binding
     return rows
 
 
@@ -1214,13 +1343,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
     t_start = t0 = time.time()
-    libraries = [rs.LIBRARY, fa.LIBRARY, fa.WGMMA_LIBRARY, spike.LIBRARY]
+    libraries = [rs.LIBRARY, fa.LIBRARY, fa.WGMMA_LIBRARY, spike.LIBRARY,
+                 spike.OPS_LIBRARY]
     reports = _build.build_all(libraries)
-    for name, report in reports.items():
+    for name, (report, _) in reports.items():
         log(f"ptxas {name}:\n{report or 'built already'}")
-    log(f"build: {time.time() - t0:.2f}s "
-        f"({', '.join(lib.path().name for lib in libraries)}); "
-        f"card: {card}")
+    log(f"build: {time.time() - t0:.2f}s, all at once; each library "
+        "(seconds from the start until its nvcc ended): " + ", ".join(
+            f"{lib.path().name} {reports[lib.name][1]:.2f}s"
+            for lib in libraries) + f"; card: {card}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     sass = sass_level_loop(read_sass(_build, rs.LIBRARY))
@@ -1234,6 +1365,14 @@ def main() -> int:
         f"template instance: {tc_sass or 'not read'}")
     check(len(tc_sass) == 2 and all(c["HGMMA"] > 0 for c in tc_sass.values()),
           "the tensor-core flash kernel's SASS holds no HGMMA")
+    ew_sass = sass_opcodes(read_sass(_build, spike.OPS_LIBRARY),
+                           "elementwise_kernel", ("LDG.128", "STG.128"),
+                           wide_access)
+    log(f"sass: the elementwise probes S1/S2, 16-byte loads and stores per "
+        f"template instance (one per op): {ew_sass or 'not read'}")
+    check(len(ew_sass) == 2 and all(c["LDG.128"] > 0 and c["STG.128"] > 0
+                                    for c in ew_sass.values()),
+          "the elementwise probes' SASS holds no 16-byte loads and stores")
 
     phase_rng(tr, torch)
     errs = phase_kernels(tr, ref, rs, torch)

@@ -129,9 +129,9 @@ class CudaBitsBackend(EdgeSamplerBackend):
     stream = "pallas_bits"
 
     @staticmethod
-    def draw_bits(key, L: int, n_edges: int, device="cpu") -> torch.Tensor:
+    def draw_bits(key, L: int, n_edges: int, device) -> torch.Tensor:
         """The exact word stream the bits kernel reads (the JAX
-        ``PallasBitsBackend.draw_bits``)."""
+        ``PallasBitsBackend.draw_bits``), on ``device``."""
         return trandom.bits(key, (L, n_edges), device)
 
     def sample_parts(self, key, thetas, n, m, n_edges, device):

@@ -1,12 +1,21 @@
 """Build and load the hand-written CUDA kernels of the port.
 
-Each kernel source under ``csrc/`` has a plain C interface.  At first use
-it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/kernels/`` of the checkout (or ``$REPRO_TORCH_BUILD``), named by a
-hash of the source, the shared headers (``csrc/*.cuh``) and the flags so
-that an edit rebuilds, and loaded with ``ctypes``.  ``build_all`` starts
-one ``nvcc`` per source at once, so a fresh machine pays for the slowest
-build, not for their sum.
+Two kinds of library, both compiled at first use with ``nvcc`` for
+``sm_90a`` into ``build/kernels/`` of the checkout (or
+``$REPRO_TORCH_BUILD``), each named by a hash of its sources, the shared
+headers (``csrc/*.cuh``) and the flags so that an edit rebuilds:
+
+* ``CudaLibrary``: one ``csrc/*.cu`` with a plain C interface, loaded
+  with ``ctypes``;
+* ``TorchOpLibrary``: a ``.cu`` of kernels and a ``.cpp`` that registers
+  them as torch ops (``TORCH_LIBRARY``), linked against torch's own
+  libraries and loaded with ``torch.ops.load_library``.  The binding
+  includes only torch's core headers, never ``torch/extension.h``, so the
+  host compiler takes seconds on it; its hash also covers torch's version
+  and C++ ABI, so a new torch rebuilds it.
+
+``build_all`` starts one ``nvcc`` per library at once, so a fresh machine
+pays for the slowest build, not for their sum.
 """
 from __future__ import annotations
 
@@ -16,11 +25,15 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+#: the torch-op libraries: C++20, the standard that torch.utils.cpp_extension
+#: compiles torch's headers with
+NVCC_FLAGS_TORCH = [f.replace("c++17", "c++20") for f in NVCC_FLAGS]
 
 
 def build_dir() -> Path:
@@ -39,23 +52,30 @@ def nvcc() -> str:
     return found
 
 
-class CudaLibrary:
-    """One ``csrc/*.cu`` source, its compiled library and its ``ctypes``
-    handle.  ``declare`` sets ``argtypes``/``restype`` of every function
-    the wrapper calls."""
+class _Library:
+    """Sources compiled by one ``nvcc`` into one shared library."""
 
-    def __init__(self, source: Path, declare: Callable[[ctypes.CDLL], None]):
+    def __init__(self, source: Path):
         self.source = source
-        self._declare = declare
-        self._lib: Optional[ctypes.CDLL] = None
+        self.name, self.stem = source.name, source.stem
         self._lock = threading.Lock()
+
+    def sources(self) -> Tuple[Path, ...]:
+        return (self.source,)
+
+    def flags(self) -> List[str]:
+        return NVCC_FLAGS
+
+    def stamp(self) -> str:
+        """What else the build depends on, hashed with sources and flags."""
+        return ""
 
     def path(self) -> Path:
         headers = sorted(self.source.parent.glob("*.cuh"))
         digest = hashlib.sha256(
-            b"".join(p.read_bytes() for p in (self.source, *headers))
-            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return build_dir() / f"lib{self.source.stem}-{digest[:12]}.so"
+            b"".join(p.read_bytes() for p in (*self.sources(), *headers))
+            + (" ".join(self.flags()) + self.stamp()).encode()).hexdigest()
+        return build_dir() / f"lib{self.stem}-{digest[:12]}.so"
 
     def _start(self) -> Optional[Tuple[subprocess.Popen, Path]]:
         """Start ``nvcc`` into a temporary file unless the library exists
@@ -65,8 +85,8 @@ class CudaLibrary:
             return None
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               str(self.source)]
+        cmd = [nvcc(), *self.flags(), "-Xptxas", "-v", "-o", str(tmp),
+               *map(str, self.sources())]
         return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True), tmp
 
@@ -77,15 +97,26 @@ class CudaLibrary:
         proc, tmp = started
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {self.source.name} failed "
+            raise RuntimeError(f"nvcc {self.name} failed "
                                f"({proc.returncode}):\n{err}")
         os.replace(tmp, self.path())
         return err.strip()
 
     def build(self) -> Path:
-        """Compile the source unless its library exists."""
+        """Compile the sources unless their library exists."""
         self._finish(self._start())
         return self.path()
+
+
+class CudaLibrary(_Library):
+    """One ``csrc/*.cu`` source with a plain C interface, its compiled
+    library and its ``ctypes`` handle.  ``declare`` sets
+    ``argtypes``/``restype`` of every function the wrapper calls."""
+
+    def __init__(self, source: Path, declare: Callable[[ctypes.CDLL], None]):
+        super().__init__(source)
+        self._declare = declare
+        self._lib: Optional[ctypes.CDLL] = None
 
     def lib(self) -> ctypes.CDLL:
         with self._lock:
@@ -96,17 +127,70 @@ class CudaLibrary:
             return self._lib
 
 
-def build_all(libraries: Sequence[CudaLibrary]) -> Dict[str, str]:
+class TorchOpLibrary(_Library):
+    """A ``.cu`` of kernels with ``extern "C"`` launchers and the ``.cpp``
+    binding that registers them as torch ops, linked by one ``nvcc`` into
+    ``lib<binding stem>-<hash>.so`` against torch's ``c10``, ``c10_cuda``,
+    ``torch_cpu`` and ``torch_cuda``.  ``load`` builds the library if it is
+    missing and loads it once; the ops are then
+    ``torch.ops.<namespace>.<name>``."""
+
+    def __init__(self, source: Path, binding: Path):
+        super().__init__(source)
+        self.binding = binding
+        self.name, self.stem = f"{source.name}+{binding.name}", binding.stem
+        self._loaded = False
+
+    def sources(self) -> Tuple[Path, ...]:
+        return (self.source, self.binding)
+
+    def flags(self) -> List[str]:
+        import torch
+        from torch.utils import cpp_extension
+        abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+        libs = cpp_extension.library_paths()
+        return [*NVCC_FLAGS_TORCH, f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+                *(f"-I{p}" for p in cpp_extension.include_paths()),
+                *(f"-L{p}" for p in libs), "-lc10", "-lc10_cuda",
+                "-ltorch_cpu", "-ltorch_cuda",
+                *(f"-Xlinker=-rpath={p}" for p in libs)]
+
+    def stamp(self) -> str:
+        import torch
+        return torch.__version__
+
+    def load(self) -> None:
+        import torch
+        with self._lock:
+            if not self._loaded:
+                torch.ops.load_library(str(self.build()))
+                self._loaded = True
+
+
+def build_all(libraries: Sequence[_Library]
+              ) -> Dict[str, Tuple[str, float]]:
     """Compile every library whose build is missing, all ``nvcc``s at once;
-    returns each source's ``-Xptxas -v`` report ('' when it was built
-    already).  After every build has ended, raises if any failed."""
+    returns each library's ``-Xptxas -v`` report and the seconds from the
+    start until its build ended ('' and 0.0 when it was built already).
+    After every build has ended, raises if any failed."""
+    t0 = time.perf_counter()
     started = [(lib, lib._start()) for lib in libraries]
-    logs, errors = {}, []
-    for lib, st in started:
+    logs: Dict[str, Tuple[str, float]] = {}
+    errors = []
+
+    def finish(lib: _Library, st) -> None:
         try:
-            logs[lib.source.name] = lib._finish(st)
+            report = lib._finish(st)
+            logs[lib.name] = (report, 0.0 if st is None
+                              else time.perf_counter() - t0)
         except RuntimeError as exc:
             errors.append(str(exc))
+
+    threads = [threading.Thread(target=finish, args=a) for a in started]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     if errors:
         raise RuntimeError("\n".join(errors))
     return logs

@@ -1,10 +1,7 @@
-// The toolchain probes S1-S4 on Hopper, bound to PyTorch through a plain C
-// interface (ctypes).
+// The toolchain probes S3 and S4 on Hopper, bound to PyTorch through a
+// plain C interface (ctypes).  S1 and S2 are in spike_elementwise.cu.
 //
-// Replace the Pallas TPU kernels of scripts/spike_pallas.py, one for one:
-//   spike_add          <- add_kernel   (S1): o = x + y, float32
-//   spike_double       <- blk_kernel   (S2): o = 2 x over a grid of row
-//                         blocks, one CTA per block as the BlockSpec cuts it
+// Replace two Pallas TPU kernels of scripts/spike_pallas.py:
 //   spike_prng         <- prng_kernel  (S3): random bits from an int32 seed
 //                         read inside the kernel
 //   spike_column_sum   <- loop_kernel  (S4): (R, C) -> (1, C), each thread
@@ -16,9 +13,9 @@
 // jax.random.bits(PRNGKey(seed), shape) (threefry.cuh, the words the R-MAT
 // kernel rmat_prng draws), so its bits are those of a documented stream.
 //
-// What bounds them on the H100: at the spike's shapes (a few KB to 2 MB)
-// the launch.  S1, S2 and S4 move a few bytes per element; S3 does ~70
-// integer operations per 4-byte word.  Build without --use_fast_math.
+// What bounds them on the H100: at the spike's shapes (4 KB) the launch.
+// S4 moves a few bytes per element; S3 does ~70 integer operations per
+// 4-byte word.  Build without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,21 +30,6 @@ constexpr long long kMaxBlocks = 132 * 16;
 unsigned grid_for(long long n) {
   const long long blocks = (n + kThreads - 1) / kThreads;
   return (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-}
-
-__global__ void add_kernel(const float* __restrict__ x,
-                           const float* __restrict__ y, float* __restrict__ o,
-                           long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    o[i] = x[i] + y[i];
-}
-
-__global__ void double_kernel(const float* __restrict__ x,
-                              float* __restrict__ o, long long block_elems) {
-  const long long base = (long long)blockIdx.x * block_elems;
-  for (long long i = threadIdx.x; i < block_elems; i += blockDim.x)
-    o[base + i] = 2.0f * x[base + i];
 }
 
 __global__ void prng_kernel(const int32_t* __restrict__ seed,
@@ -73,23 +55,6 @@ __global__ void column_sum_kernel(const float* __restrict__ x,
 extern "C" {
 
 // Each returns a cudaError_t code (0 = ok).
-
-int spike_add(const float* x, const float* y, float* o, long long n,
-              void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  add_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(x, y, o, n);
-  return (int)cudaGetLastError();
-}
-
-// x and o are (n_blocks * block_rows, cols); one CTA per block of rows
-int spike_double(const float* x, float* o, int n_blocks, int block_rows,
-                 int cols, void* stream) {
-  if (n_blocks <= 0 || block_rows <= 0 || cols <= 0)
-    return (int)cudaErrorInvalidValue;
-  double_kernel<<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      x, o, (long long)block_rows * cols);
-  return (int)cudaGetLastError();
-}
 
 // seed: one int32 on the card
 int spike_prng(const int32_t* seed, int32_t* o, long long n, void* stream) {

@@ -1,0 +1,88 @@
+// Torch ops over the elementwise probes of spike_elementwise.cu:
+//
+//   torch.ops.repro_spike.add(Tensor x, Tensor y) -> Tensor          (S1)
+//   torch.ops.repro_spike.double_blocks(Tensor x) -> Tensor          (S2)
+//
+// Registered for CUDA tensors only; kernels/spike.py takes the plain
+// versions for CPU tensors.  The checks, the device guard, the stream and
+// the allocation run in C++ behind the dispatcher, so a call costs about
+// what one of torch's own elementwise ops costs on the host.  A refused
+// input raises ValueError in Python (TORCH_CHECK_VALUE) with the words of
+// the CPU path's checks.  The file includes no Python and no
+// torch/extension.h, so the host compiler builds it in seconds.
+//
+// The output comes from at::detail::empty_cuda, the CUDA caching
+// allocator's tensor without the dispatcher, as torch's own elementwise
+// kernels take theirs: at::empty_like would go through the dispatcher
+// twice more (empty_like, then empty_strided), which on the card's host
+// cost more than the rest of the call's overhead together.  It lives in
+// libtorch_cuda, so the library links that too.
+
+#include <ATen/core/Tensor.h>
+#include <ATen/cuda/EmptyTensor.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <torch/library.h>
+
+extern "C" {
+cudaError_t spike_elementwise_add(const float* x, const float* y, float* o,
+                                  long long n, cudaStream_t stream);
+cudaError_t spike_elementwise_double(const float* x, float* o, long long n,
+                                     cudaStream_t stream);
+}
+
+namespace {
+
+// the kernels' 32-bit indices (spike_elementwise.cu)
+constexpr int64_t kMaxElements = int64_t{1} << 30;
+
+// A contiguous float32 tensor of x's sizes on x's device
+at::Tensor empty_float32_like(const at::Tensor& x) {
+  return at::detail::empty_cuda(x.sizes(), at::kFloat, x.device(),
+                                c10::nullopt);
+}
+
+void check_float32(const char* name, const at::Tensor& t, int64_t dim) {
+  TORCH_CHECK_VALUE(
+      t.scalar_type() == at::kFloat && t.dim() == dim && t.is_contiguous(),
+      name, " must be a contiguous ", dim, "-d torch.float32 tensor, got ",
+      t.scalar_type(), " ", t.sizes());
+  TORCH_CHECK_VALUE(t.numel() <= kMaxElements, name, " has ", t.numel(),
+                    " elements; the elementwise probes take at most 2^30");
+}
+
+at::Tensor add(const at::Tensor& x, const at::Tensor& y) {
+  check_float32("x", x, x.dim());
+  check_float32("y", y, x.dim());
+  TORCH_CHECK_VALUE(x.sizes() == y.sizes() && x.device() == y.device(), "x ",
+                    x.sizes(), " on ", x.device(), " and y ", y.sizes(),
+                    " on ", y.device(), ": one shape, one device");
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor out = empty_float32_like(x);
+  C10_CUDA_CHECK(spike_elementwise_add(
+      x.data_ptr<float>(), y.data_ptr<float>(), out.data_ptr<float>(),
+      x.numel(), c10::cuda::getCurrentCUDAStream().stream()));
+  return out;
+}
+
+at::Tensor double_blocks(const at::Tensor& x) {
+  check_float32("x", x, 2);
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor out = empty_float32_like(x);
+  C10_CUDA_CHECK(spike_elementwise_double(
+      x.data_ptr<float>(), out.data_ptr<float>(), x.numel(),
+      c10::cuda::getCurrentCUDAStream().stream()));
+  return out;
+}
+
+}  // namespace
+
+TORCH_LIBRARY(repro_spike, m) {
+  m.def("add(Tensor x, Tensor y) -> Tensor");
+  m.def("double_blocks(Tensor x) -> Tensor");
+}
+
+TORCH_LIBRARY_IMPL(repro_spike, CUDA, m) {
+  m.impl("add", &add);
+  m.impl("double_blocks", &double_blocks);
+}

@@ -1,11 +1,12 @@
 """Wrappers over the CUDA counterparts of the Pallas toolchain probes.
 
-``csrc/spike.cu`` replaces the four kernels of ``scripts/spike_pallas.py``
-one for one, at that script's shapes:
+They replace the four kernels of ``scripts/spike_pallas.py`` one for one,
+at that script's shapes:
 
 * ``add`` (S1, ``add_kernel``): float32 ``x + y``;
-* ``double_blocks`` (S2, ``blk_kernel``): ``2 * x`` with one CTA per block
-  of ``block_rows`` rows, as the script's grid of row blocks cuts it;
+* ``double_blocks`` (S2, ``blk_kernel``): ``2 * x``; R must be a multiple
+  of ``block_rows``, the script's row blocks, which are not the launch
+  shape on the card;
 * ``prng_bits`` (S3, ``prng_kernel``): random bits from an int32 seed that
   the kernel reads.  The TPU's hardware bits cannot be reproduced; the
   kernel computes the threefry2x32 words of ``random.bits(PRNGKey(seed),
@@ -13,6 +14,13 @@ one for one, at that script's shapes:
   ``rmat_sample_prng`` keeps too;
 * ``column_sum`` (S4, ``loop_kernel``): (R, C) → (1, C), each thread
   adding the rows in order, as the ``fori_loop`` does.
+
+S1 and S2 are elementwise kernels with 16-byte accesses
+(``csrc/spike_elementwise.cu``) bound as the torch ops
+``torch.ops.repro_spike.add`` and ``double_blocks``
+(``csrc/spike_ops.cpp``), which check their inputs, guard the device, take
+torch's current stream and allocate in C++: a CUDA tensor goes straight
+to the op.  S3 and S4 (``csrc/spike.cu``) are called through ``ctypes``.
 
 Every wrapper checks its inputs; for tensors on the CPU it takes the plain
 version in ``kernels/ref.py``, for CUDA tensors it launches the kernel on
@@ -33,23 +41,32 @@ from repro_torch.kernels import _build, ref
 LAUNCHES: Dict[str, int] = {"add": 0, "double_blocks": 0, "prng_bits": 0,
                             "column_sum": 0}
 
-SOURCE = Path(__file__).with_name("csrc") / "spike.cu"
+CSRC = Path(__file__).with_name("csrc")
+SOURCE = CSRC / "spike.cu"
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.spike_add.argtypes = [p, p, p, ll, p]
-    lib.spike_double.argtypes = [p, p, i, i, i, p]
     lib.spike_prng.argtypes = [p, p, ll, p]
     lib.spike_column_sum.argtypes = [p, p, i, i, p]
-    for fn in (lib.spike_add, lib.spike_double, lib.spike_prng,
-               lib.spike_column_sum):
+    for fn in (lib.spike_prng, lib.spike_column_sum):
         fn.restype = i
     lib.spike_error_string.argtypes = [i]
     lib.spike_error_string.restype = ctypes.c_char_p
 
 
 LIBRARY = _build.CudaLibrary(SOURCE, _declare)
+OPS_LIBRARY = _build.TorchOpLibrary(CSRC / "spike_elementwise.cu",
+                                    CSRC / "spike_ops.cpp")
+#: ``torch.ops.repro_spike.{add,double_blocks}.default``, once loaded
+_ADD = _DOUBLE = None
+
+
+def _load_ops() -> None:
+    global _ADD, _DOUBLE
+    OPS_LIBRARY.load()
+    _ADD = torch.ops.repro_spike.add.default
+    _DOUBLE = torch.ops.repro_spike.double_blocks.default
 
 
 def reset_launches() -> None:
@@ -66,6 +83,14 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int) -> None:
                          "tensors (plain version) or CUDA tensors")
 
 
+def _check_blocks(x: torch.Tensor, block_rows: int) -> None:
+    """The Pallas grid's contract: whole row blocks (a non-2-d ``x`` is
+    refused by the dtype/shape check)."""
+    if block_rows < 1 or (x.dim() == 2 and x.shape[0] % block_rows):
+        raise ValueError(f"R of x {tuple(x.shape)} must be a multiple of "
+                         f"block_rows={block_rows}")
+
+
 def _launch(name: str, fn, out: torch.Tensor, *args) -> torch.Tensor:
     with torch.cuda.device(out.device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -77,38 +102,37 @@ def _launch(name: str, fn, out: torch.Tensor, *args) -> torch.Tensor:
 
 
 def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """S1: ``x + y`` of two float32 tensors of one shape."""
+    """S1: ``x + y`` of two float32 tensors of one shape (on the card at
+    most 2^30 elements, the kernel's 32-bit indices)."""
+    if x.is_cuda:
+        if _ADD is None:
+            _load_ops()
+        out = _ADD(x, y)
+        LAUNCHES["add"] += 1
+        return out
     _check("x", x, torch.float32, x.dim())
     _check("y", y, torch.float32, x.dim())
     if x.shape != y.shape or x.device != y.device:
         raise ValueError(f"x {tuple(x.shape)} on {x.device} and y "
                          f"{tuple(y.shape)} on {y.device}: one shape, one "
                          "device")
-    if x.device.type == "cpu":
-        return ref.add_ref(x, y)
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    return _launch("add", LIBRARY.lib().spike_add, out, x.data_ptr(),
-                   y.data_ptr(), out.data_ptr(), x.numel())
+    return ref.add_ref(x, y)
 
 
 def double_blocks(x: torch.Tensor, block_rows: int = 128) -> torch.Tensor:
-    """S2: ``2 * x`` for a float32 (R, C) tensor, one CTA per block of
-    ``block_rows`` rows; R must be a multiple of ``block_rows``."""
-    _check("x", x, torch.float32, 2)
-    R, C = x.shape
-    if block_rows < 1 or R % block_rows:
-        raise ValueError(f"R={R} must be a multiple of block_rows="
-                         f"{block_rows}")
-    if x.device.type == "cpu":
-        return ref.double_ref(x)
-    out = torch.empty_like(x)
-    if out.numel() == 0:
+    """S2: ``2 * x`` for a float32 (R, C) tensor; R must be a multiple of
+    ``block_rows``, the row blocks of the Pallas kernel's grid (on the card
+    at most 2^30 elements)."""
+    if x.is_cuda:
+        _check_blocks(x, block_rows)
+        if _DOUBLE is None:
+            _load_ops()
+        out = _DOUBLE(x)
+        LAUNCHES["double_blocks"] += 1
         return out
-    return _launch("double_blocks", LIBRARY.lib().spike_double, out,
-                   x.data_ptr(), out.data_ptr(), R // block_rows, block_rows,
-                   C)
+    _check("x", x, torch.float32, 2)
+    _check_blocks(x, block_rows)
+    return ref.double_ref(x)
 
 
 def prng_bits(seed: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -212,6 +212,134 @@ def test_probes_match_plain_versions(cuda):
                               "column_sum": 1}
 
 
+@pytest.mark.parametrize("n", [1, 3, 1023, 1024, (1 << 24) + 3])
+def test_elementwise_probes_bit_equal(cuda, n):
+    """S1 and S2 through their torch ops: the n % 4 tail, one CTA, and
+    past the grid cap (a grid-stride loop)."""
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(n, generator=gen).to(cuda)
+    y = torch.randn(n, generator=gen).to(cuda)
+    spike.reset_launches()
+    assert torch.equal(spike.add(x, y), ref.add_ref(x, y))
+    col = x.view(n, 1)
+    assert torch.equal(spike.double_blocks(col, block_rows=1),
+                       ref.double_ref(col))
+    assert spike.LAUNCHES["add"] == 1
+    assert spike.LAUNCHES["double_blocks"] == 1
+
+
+@pytest.mark.parametrize("rows,cols", [(1024, 256), (128, 3), (256, 1 << 12)])
+def test_double_blocks_shapes(cuda, rows, cols):
+    x = torch.randn((rows, cols), generator=torch.Generator().manual_seed(
+        cols)).to(cuda)
+    got = spike.double_blocks(x)
+    assert got.shape == x.shape and got.is_contiguous()
+    assert torch.equal(got, ref.double_ref(x))
+
+
+def test_elementwise_probes_misaligned_view(cuda):
+    """A contiguous view at an odd offset takes the scalar path."""
+    buf = torch.randn(1026, generator=torch.Generator().manual_seed(5)).to(
+        cuda)
+    x = buf[1:1025]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    y = torch.randn(1024, generator=torch.Generator().manual_seed(6)).to(
+        cuda)
+    assert torch.equal(spike.add(x, y), ref.add_ref(x, y))
+    assert torch.equal(spike.add(y, x), ref.add_ref(y, x))
+    x2 = x.view(8, 128)
+    assert torch.equal(spike.double_blocks(x2, block_rows=8),
+                       ref.double_ref(x2))
+
+
+def test_elementwise_probes_run_on_the_current_stream(cuda):
+    """Under ``torch.cuda.stream(s)`` the kernels queue on ``s``: behind a
+    sleep and a copy on ``s`` they read the copied values, and an event
+    recorded on ``s`` after the calls is still pending while the sleep
+    runs."""
+    gen = torch.Generator().manual_seed(9)
+    new = torch.randn((1024, 256), generator=gen).to(cuda)
+    y = torch.randn((1024, 256), generator=gen).to(cuda)
+    x = torch.zeros_like(new)
+    spike.add(x, y), spike.double_blocks(x)   # the op library loaded
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(500_000_000)          # ~0.25 s at 2 GHz
+        x.copy_(new)
+        added = spike.add(x, y)
+        doubled = spike.double_blocks(x)
+        done = torch.cuda.Event()
+        done.record(s)
+    assert not done.query()
+    done.synchronize()
+    assert torch.equal(added, new + y) and torch.equal(doubled, 2 * new)
+    s.synchronize()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda d: spike.add(torch.zeros(128, 8, device=d).t(),
+                         torch.zeros(8, 128, device=d)), "contiguous"),
+    (lambda d: spike.add(torch.zeros(8, 128, device=d),
+                         torch.zeros(8, 128, dtype=torch.float64, device=d)),
+     "float32"),
+    (lambda d: spike.add(torch.zeros(8, 128, device=d),
+                         torch.zeros(8, 128)), "one device"),
+    (lambda d: spike.add(torch.zeros(8, 128, device=d),
+                         torch.zeros(8, 64, device=d)), "one shape"),
+    (lambda d: spike.double_blocks(torch.zeros(256, 128, device=d).t()),
+     "contiguous"),
+    (lambda d: spike.double_blocks(torch.zeros(128, 8, dtype=torch.float16,
+                                               device=d)), "float32"),
+    (lambda d: spike.double_blocks(torch.zeros(200, 8, device=d)),
+     "multiple"),
+])
+def test_elementwise_probes_refuse_what_the_cpu_path_refuses(cuda, call,
+                                                             match):
+    spike.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        call(cuda)
+    assert spike.LAUNCHES["add"] == spike.LAUNCHES["double_blocks"] == 0
+
+
+@pytest.mark.parametrize("op", ["add", "double_blocks"])
+def test_elementwise_probes_output_is_the_streams_own_tensor(cuda, op):
+    """The ops' output: float32 of x's sizes on x's device, contiguous,
+    its own storage, and a block of a caching-allocator segment of the
+    stream current at the call."""
+    x = torch.randn((256, 64), generator=torch.Generator().manual_seed(3)).to(
+        cuda)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        out = spike.add(x, x) if op == "add" else spike.double_blocks(x)
+    s.synchronize()
+    assert out.dtype == torch.float32 and out.device == x.device
+    assert out.shape == x.shape and out.stride() == (64, 1)
+    assert out.storage_offset() == 0 and out.data_ptr() != x.data_ptr()
+    assert torch.equal(out, 2 * x)
+    ptr = out.data_ptr()
+    segments = [g for g in torch.cuda.memory_snapshot()
+                if g["address"] <= ptr < g["address"] + g["total_size"]]
+    assert len(segments) == 1 and segments[0]["stream"] == s.cuda_stream
+
+
+def test_elementwise_probes_refuse_past_32_bit_indices(cuda):
+    """More than 2^30 elements would overflow the kernel's int indices:
+    the ops refuse them before any launch."""
+    x = torch.empty((128, (1 << 23) + 1), device=cuda)   # 2^30 + 128
+    spike.reset_launches()
+    with pytest.raises(ValueError, match=r"at most 2\^30"):
+        spike.double_blocks(x)
+    flat = x.view(-1)
+    with pytest.raises(ValueError, match=r"at most 2\^30"):
+        spike.add(flat, flat)
+    assert spike.LAUNCHES["add"] == spike.LAUNCHES["double_blocks"] == 0
+    del x, flat
+    torch.cuda.empty_cache()
+
+
 def test_prng_probe_is_the_random_stream(cuda):
     """S3's words are ``random.bits`` at any length, past one grid pass."""
     seed = torch.tensor([-5], dtype=torch.int32, device=cuda)

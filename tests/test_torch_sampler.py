@@ -138,3 +138,18 @@ def test_overflow_guard_n34_int32():
     ck = rmat.chunk_plan(fit, 2)[0]
     with pytest.raises(ValueError, match="34 id bits.*int32"):
         rmat.sample_chunk(tr.PRNGKey(0), fit, ck, 2, device="cpu")
+
+
+@pytest.mark.parametrize("L,E", [(12, 256), (34, 1000)])
+def test_cuda_bits_draw_is_the_pallas_bits_draw(L, E):
+    """``draw_bits`` names its device (no CPU default) and draws the JAX
+    ``pallas_bits`` backend's words there."""
+    key = jax.random.PRNGKey(L * E)
+    want = np.asarray(jsampler.get_backend("pallas_bits").draw_bits(key, L,
+                                                                     E))
+    draw = sampler.get_backend("cuda_bits").draw_bits
+    got = draw(tr.PRNGKey(L * E), L, E, "cpu")
+    assert got.device.type == "cpu" and tuple(got.shape) == (L, E)
+    np.testing.assert_array_equal(got.numpy(), want.view(np.int32))
+    with pytest.raises(TypeError):
+        draw(tr.PRNGKey(L * E), L, E)

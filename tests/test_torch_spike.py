@@ -9,8 +9,17 @@ S2 must match exactly, S4 within 1e-6 (both sides add the rows in order,
 in float32).  S3's TPU kernel draws the TPU's hardware bits, which no CPU
 or CUDA card reproduces (it fails in interpret mode on a CPU), so its
 counterpart is held to ``jax.random.bits`` of the same seed instead.
+
+S1 and S2 on the card are torch ops of a library built from
+``csrc/spike_elementwise.cu`` and ``csrc/spike_ops.cpp``; this CPU never
+builds or loads it.  What the CPU can check is the wrappers' CUDA branch,
+on a stand-in for a CUDA tensor: straight to the op, one count per call,
+no Python device guard, no ``ctypes``, no fallback to the plain version;
+and the library's build flags and headers.
 """
+import re
 import runpy
+import shutil
 from pathlib import Path
 
 import jax
@@ -20,7 +29,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from repro_torch.kernels import spike
+from repro_torch.kernels import _build, spike
 
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "spike_pallas.py"
 
@@ -106,3 +115,137 @@ def test_cpu_calls_launch_no_kernel():
     spike.column_sum(x)
     spike.prng_bits(torch.tensor([3], dtype=torch.int32), (4,))
     assert sum(spike.LAUNCHES.values()) == 0
+
+
+class _CudaStandIn:
+    """What the CUDA branch of ``add``/``double_blocks`` may read of a
+    CUDA tensor before it hands it to the op."""
+    is_cuda = True
+
+    def __init__(self, *shape):
+        self.shape = torch.Size(shape)
+
+    def dim(self):
+        return len(self.shape)
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("the CUDA branch left the torch op")
+
+
+@pytest.fixture
+def op_calls(monkeypatch):
+    """The ops replaced by recorders; the Python device guard, the
+    current-stream lookup, the ctypes library and the plain versions
+    replaced by failures."""
+    calls = []
+    monkeypatch.setattr(spike, "_ADD",
+                        lambda x, y: calls.append(("add", x, y)) or "sum")
+    monkeypatch.setattr(spike, "_DOUBLE",
+                        lambda x: calls.append(("double_blocks", x))
+                        or "twice")
+    for obj, attr in ((torch.cuda, "device"), (torch.cuda, "current_stream"),
+                      (spike.LIBRARY, "lib"), (spike.ref, "add_ref"),
+                      (spike.ref, "double_ref")):
+        monkeypatch.setattr(obj, attr, _refuse)
+    spike.reset_launches()
+    return calls
+
+
+@pytest.mark.parametrize("calls_per_probe", [1, 3])
+def test_cuda_branch_goes_straight_to_the_op(op_calls, calls_per_probe):
+    x, y = _CudaStandIn(8, 128), _CudaStandIn(8, 128)
+    big = _CudaStandIn(1024, 256)
+    for _ in range(calls_per_probe):
+        assert spike.add(x, y) == "sum"
+        assert spike.double_blocks(big) == "twice"
+    assert op_calls == [("add", x, y), ("double_blocks", big)] * \
+        calls_per_probe
+    assert spike.LAUNCHES == {"add": calls_per_probe,
+                              "double_blocks": calls_per_probe,
+                              "prng_bits": 0, "column_sum": 0}
+
+
+@pytest.mark.parametrize("shape,block_rows", [((200, 128), 128),
+                                              ((256, 128), 0),
+                                              ((1024, 256), 100)])
+def test_cuda_branch_keeps_the_row_block_contract(op_calls, shape,
+                                                  block_rows):
+    with pytest.raises(ValueError, match="multiple"):
+        spike.double_blocks(_CudaStandIn(*shape), block_rows=block_rows)
+    assert op_calls == [] and spike.LAUNCHES["double_blocks"] == 0
+
+
+@pytest.mark.parametrize("name", ["add", "double_blocks"])
+def test_cuda_branch_raises_when_the_ops_do_not_load(monkeypatch, name):
+    """A library that does not build raises; the plain version is never
+    taken for a CUDA tensor."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(spike, "_ADD", None)
+    monkeypatch.setattr(spike, "_DOUBLE", None)
+    monkeypatch.setattr(spike.OPS_LIBRARY, "load", no_nvcc)
+    for attr in ("add_ref", "double_ref"):
+        monkeypatch.setattr(spike.ref, attr, _refuse)
+    spike.reset_launches()
+    x = _CudaStandIn(128, 128)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        spike.add(x, x) if name == "add" else spike.double_blocks(x)
+    assert sum(spike.LAUNCHES.values()) == 0
+
+
+def _op_library(tmp_path):
+    for src in ("spike_elementwise.cu", "spike_ops.cpp"):
+        shutil.copy(spike.CSRC / src, tmp_path / src)
+    return _build.TorchOpLibrary(tmp_path / "spike_elementwise.cu",
+                                 tmp_path / "spike_ops.cpp")
+
+
+def test_op_library_flags(monkeypatch, tmp_path):
+    monkeypatch.setenv("REPRO_TORCH_BUILD", str(tmp_path / "out"))
+    flags = _op_library(tmp_path).flags()
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    assert {"arch=compute_90a,code=sm_90a", "-O3", "-std=c++20", "-shared",
+            f"-D_GLIBCXX_USE_CXX11_ABI={abi}", "-lc10", "-lc10_cuda",
+            "-ltorch_cpu", "-ltorch_cuda"} <= set(flags)
+    incs = [Path(f[2:]) for f in flags if f.startswith("-I")]
+    assert any((p / "torch" / "library.h").exists() for p in incs)
+    libs = [f[2:] for f in flags if f.startswith("-L")]
+    assert libs and all(f"-Xlinker=-rpath={p}" in flags for p in libs)
+
+
+@pytest.mark.parametrize("edit", ["spike_elementwise.cu", "spike_ops.cpp",
+                                  "torch", "abi"])
+def test_op_library_name_hashes_what_the_build_reads(monkeypatch, tmp_path,
+                                                     edit):
+    monkeypatch.setenv("REPRO_TORCH_BUILD", str(tmp_path / "out"))
+    before = _op_library(tmp_path).path()
+    assert before.parent == tmp_path / "out"
+    assert re.fullmatch(r"libspike_ops-[0-9a-f]{12}\.so", before.name)
+    if edit == "torch":
+        monkeypatch.setattr(torch, "__version__", "0.0.0+other")
+    elif edit == "abi":
+        monkeypatch.setattr(torch._C, "_GLIBCXX_USE_CXX11_ABI",
+                            not torch._C._GLIBCXX_USE_CXX11_ABI)
+    else:
+        with open(tmp_path / edit, "a") as f:
+            f.write("\n// edited\n")
+    after = _build.TorchOpLibrary(tmp_path / "spike_elementwise.cu",
+                                  tmp_path / "spike_ops.cpp").path()
+    assert after != before
+
+
+def _includes(name):
+    text = (spike.CSRC / name).read_text()
+    return set(re.findall(r'^#include [<"]([^>"]+)[>"]', text, re.M))
+
+
+def test_sources_include_no_python_and_no_extension_header():
+    """The binding takes torch's core headers, ATen's dispatcher-free CUDA
+    allocation and c10's CUDA headers only (no ``torch/extension.h``,
+    nothing of Python); the kernels no torch header at all."""
+    assert _includes("spike_ops.cpp") == {
+        "torch/library.h", "ATen/core/Tensor.h", "ATen/cuda/EmptyTensor.h",
+        "c10/cuda/CUDAGuard.h", "c10/cuda/CUDAStream.h"}
+    assert _includes("spike_elementwise.cu") == {"cuda_runtime.h",
+                                                 "stdint.h"}
