@@ -50,7 +50,11 @@ forward and serving engine (phases 8-10) and the toolchain probes S1-S4
    bf16 (< 2e-2) at the scoring path's shape (Hq = 4·32, Hkv = 16, S = T
    = 2048, d = 64, causal), at d = 128, non-causal, GQA group 16 (d 64
    and 128) and a ragged S = T = 1000; the FMA kernel in f32 (< 2e-5,
-   TF32 off) at the path's shape and in bf16 at d = 32;
+   TF32 off) at the path's shape and in bf16 at d = 32; then the
+   tensor-core kernel on early causal rows of outputs ≥ 4 (V scaled by
+   8; Hq 16, Hkv 4, S = T 256 and 2048, d 64 and 128): within one bf16
+   step of the plain version on float32 copies where |out| ≥ 4, within
+   2e-2 × 8 elsewhere, SDPA's reading logged beside it;
 9. scoring at full width: ``tinyllama-1.1b`` (22 layers, bf16, weights
    from ``init_params(PRNGKey(0))``), ``attn_impl="flash"``, B = 4 × S =
    2048 tokens from seed 1: one ``Model.forward``, its loss as
@@ -72,19 +76,23 @@ forward and serving engine (phases 8-10) and the toolchain probes S1-S4
     phase 8's bf16 shape beside the FMA kernel at the same shape and
     ``scaled_dot_product_attention``, and the probes of phase 12;
 12. the probes S1-S4 of ``scripts/spike_pallas.py`` at its shapes and on
-    its inputs, one launch each with the counters at 0 (S1 and S2 through
-    their torch ops, whose library must be loaded), then on random inputs
-    of the same shapes: each equal to its plain version (S4 within 1e-6),
-    timed per call in loops of 200 beside ``torch.add``, ``torch.mul``
-    and ``sum(0)``, five rounds of kernel then library, the least of each
-    (S3 has no library call: ``torch.randint`` is Philox, not threefry),
-    and each one's device time per call, kernel and library, from
-    ``torch.profiler``'s kernel events over such a loop.
+    its inputs, one launch each with the counters at 0, each through its
+    torch op (``torch.ops.repro_spike.*``, whose library must be loaded,
+    and whose kernel the profiler must see), then on random inputs of the
+    same shapes: each equal to its plain version bit for bit, timed per
+    call in loops of 200 beside ``torch.add``, ``torch.mul`` and
+    ``sum(0)``, five rounds of kernel then library, the least of each (S3
+    has no library call: ``torch.randint`` is Philox, not threefry; its
+    time is set beside S1's op), and each one's device time per call,
+    kernel and library, from ``torch.profiler``'s kernel events over such
+    a loop; then S3 at 2^26 words and S4 at (64, 2^20), bit-equal, timed
+    beside their bounds (and ``sum(0)``) as ``large_*`` fields.
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
-``spike_elementwise.cu``) beside the ``ctypes`` libraries, logs each
-library's build seconds, and fails if the elementwise kernel's SASS holds
-no 16-byte loads and stores.  Every ``kernels`` row carries ``device_us``
+``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
+logs each library's build seconds, and fails if the SASS holds no 16-byte
+loads and stores in the elementwise kernel, no 16-byte load in S4's and no
+16-byte store in S3's.  Every ``kernels`` row carries ``device_us``
 and ``library_device_us`` (per call, from the profiler; null where there
 is no library call, or where the profiler did not keep every call's
 kernel events), with ``device_calls`` (the calls traced) and
@@ -862,10 +870,72 @@ def flash_inputs(hq, hkv, s, d, dtype, seed, torch):
             for shape in ((hq, s, d), (hkv, s, d), (hkv, s, d))]
 
 
+#: V's scale in phase 8's early-row check: early causal rows then reach
+#: |out| of 4–32, where one bf16 step is 2^-5–2^-3
+V_SCALE = 8.0
+
+
+def early_row_excess(got, want, v_scale: float = V_SCALE) -> float:
+    """max |got − want| over its limit: one bf16 step at |want|,
+    ``2**(floor(log2|want|) − 7)``, where |want| ≥ 4; elsewhere 2e-2
+    times the V scale (attention is linear in V).  At most 1 passes."""
+    import torch
+    got, want = got.float(), want.float()
+    a = want.abs()
+    step = torch.exp2(torch.floor(torch.log2(a.clamp_min(4.0))) - 7)
+    limit = torch.where(a >= 4, step, torch.full_like(a, 2e-2 * v_scale))
+    return ((got - want).abs() / limit).max().item()
+
+
+def phase_early_rows(fa, ref, torch) -> dict:
+    """The tensor-core route on early causal rows of outputs ≥ 4: bf16
+    inputs with V scaled by ``V_SCALE``, Hq 16, Hkv 4, S = T in {256,
+    2048}, d in {64, 128}, against the plain version on float32 copies of
+    the same bf16 inputs, to ``early_row_excess``'s limits.  SDPA's
+    reading on the same inputs is logged beside it, not held.  Returns
+    the largest excess of each."""
+    F = torch.nn.functional
+    worst = {"kernel": 0.0, "sdpa": 0.0}
+    for s_, d_ in ((256, 64), (256, 128), (2048, 64), (2048, 128)):
+        q, k, v = flash_inputs(16, 4, s_, d_, torch.bfloat16, 3 * s_ + d_,
+                               torch)
+        v = v * V_SCALE
+        want = ref.attention_ref(q.float(), k.float(), v.float(),
+                                 causal=True, group=4)
+        fa.reset_launches()
+        got = fa.flash_attention(q, k, v, causal=True, group=4)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention_wgmma"]
+        sdpa = F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=True,
+                                              enable_gqa=True)[0]
+        got_x, sdpa_x = early_row_excess(got, want), early_row_excess(sdpa,
+                                                                      want)
+        big = int((want.abs() >= 4).sum())
+        early = float(want[:, :16].abs().max())
+        log(f"flash early rows Hq=16 Hkv=4 S=T={s_} d={d_} causal bf16, V x "
+            f"{V_SCALE:g}: {big} outputs with |want| >= 4 (max |want| on "
+            f"rows 0-15 {early:.3f}); max |err| / limit: kernel "
+            f"{got_x:.4f}, sdpa {sdpa_x:.4f} (limit 1: one bf16 step where "
+            f"|want| >= 4, {2e-2 * V_SCALE:g} elsewhere)")
+        check(launches == 1, "the early-row check left the tensor-core "
+              f"route ({launches} launches)")
+        check(early >= 4, "no early causal output reached 4")
+        check(got_x <= 1.0, "flash_attention misses the early-row limit "
+              f"({got_x:.4f} of it)")
+        worst = {"kernel": max(worst["kernel"], got_x),
+                 "sdpa": max(worst["sdpa"], sdpa_x)}
+        del q, k, v, want, got, sdpa
+    torch.cuda.empty_cache()
+    return worst
+
+
 def phase_flash_kernel(fa, ref, torch) -> tuple:
     """K4 against its plain version, each call on the route its dtype and
-    head dim select (checked on the per-route counters).  Returns the max
-    error of the tensor-core route (bf16) and of the FMA route in f32."""
+    head dim select (checked on the per-route counters), then on early
+    causal rows (``phase_early_rows``).  Returns the max error of the
+    tensor-core route (bf16), of the FMA route in f32, and the early-row
+    readings."""
     tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
     hq, hkv, s, d = (FLASH_PATH[k] for k in ("hq", "hkv", "s", "d"))
     bf, f32 = torch.bfloat16, torch.float32
@@ -904,7 +974,8 @@ def phase_flash_kernel(fa, ref, torch) -> tuple:
                                       err)
         del q, k, v, got, want
     torch.cuda.empty_cache()
-    return errs["wgmma", bf], errs["fma", f32]
+    return errs["wgmma", bf], errs["fma", f32], phase_early_rows(fa, ref,
+                                                                 torch)
 
 
 def phase_lm_scoring(tr, get_config, Model, transformer, fa, rs, ref,
@@ -1138,6 +1209,38 @@ def phase_serving(model, params, ServingEngine, Request, fa, torch):
         "alone")
 
 
+def flash_d128_timing(fa, torch) -> dict:
+    """The tensor-core kernel at head dim 128 (the d = 128 template, which
+    the scoring shape does not run), at the attention shape of a d = 128
+    dense config at B = 4, S = 2048 (32 heads, 8 kv heads, as
+    ``llama3-8b``), beside SDPA and its bound."""
+    F = torch.nn.functional
+    hq, hkv, s, d = LM_B * 32, LM_B * 8, LM_S, 128
+    q, k, v = flash_inputs(hq, hkv, s, d, torch.bfloat16, 11, torch)
+
+    def kern():
+        return fa.flash_attention(q, k, v, causal=True, group=hq // hkv)
+
+    def library():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=True,
+                                              enable_gqa=True)[0]
+
+    check(fa.route(q.dtype, d) == "wgmma", "d = 128 left the tensor-core "
+          "route")
+    ms = min(cuda_ms(kern, 10), cuda_ms(kern, 10))
+    lib_ms = min(cuda_ms(library, 10), cuda_ms(library, 10))
+    bound_s, by = flash_bound_s(hq, hkv, s, s, d, True, "bfloat16")
+    log(f"timing flash_attention at d=128 (Hq={hq} Hkv={hkv} S=T={s} causal "
+        f"bf16): tensor-core kernel {ms:.4f} ms ({bound_s / ms * 1e5:.1f}% "
+        f"of bound {bound_s * 1e3:.4f} ms, {by}), sdpa {lib_ms:.4f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"d128_shape": f"Hq={hq} Hkv={hkv} S=T={s} d={d} causal bf16",
+            "d128_ms": ms, "d128_bound_ms": bound_s * 1e3,
+            "d128_library_ms": lib_ms}
+
+
 def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
     """K4's tensor-core kernel, its FMA kernel on the same bf16 inputs, its
     plain version and SDPA at the scoring path's shape."""
@@ -1174,6 +1277,7 @@ def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
     dev_us, _, kept = device_us(kern, 5)
     lib_dev_us, _, lib_kept = device_us(library, 5)
     bound_s, by = flash_bound_s(hq, hkv, s, s, d, True, "bfloat16")
+    d128 = flash_d128_timing(fa, torch)
     shape = (f"Hq={hq} Hkv={hkv} S=T={s} d={d} causal bf16: the scoring "
              f"path's attention ({LM_ARCH}, B={LM_B})")
     log(f"timing flash_attention: tensor-core kernel {ms:.4f}/{ms2:.4f} ms "
@@ -1195,15 +1299,88 @@ def phase_flash_timing(fa, ref, torch, launches: int, err: float) -> dict:
             "library_device_kept": lib_kept,
             "fma_ms": min(fma_ms, fma_ms2),
             "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "shape": shape}
+            "shape": shape, **d128}
+
+
+#: the kernel each probe's op launches (csrc/spike_elementwise.cu,
+#: csrc/spike.cu), as the profiler and cuobjdump name them
+PROBE_KERNELS = {"add": "elementwise_kernel",
+                 "double_blocks": "elementwise_kernel",
+                 "prng_bits": "prng_vec4_kernel",
+                 "column_sum": "column_sum_vec4_kernel"}
+#: the probes' large shapes: S3's words, S4's (R, C)
+PRNG_LARGE_WORDS = 1 << 26
+COLUMN_SUM_LARGE = (64, 1 << 20)
+
+
+def probe_bound_s(name: str, args, out) -> tuple:
+    """Least time for a probe's work and its limiter: inputs read once
+    and the output written once over HBM, against S3's threefry
+    operations (``prng_bound_s``) or one float32 add or multiply per input
+    element over the FMA pipes."""
+    import torch
+    in_bytes = sum(a.numel() * a.element_size() for a in args
+                   if isinstance(a, torch.Tensor))
+    by_bytes = (in_bytes + out.numel() * out.element_size()) / HBM_BYTES_PER_S
+    if name == "prng_bits":
+        by_ops = prng_bound_s(1, out.numel())
+    else:
+        by_ops = args[0].numel() / PEAK_FLOPS["float32"]
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes,
+                                                             "bytes")
+
+
+def phase_probes_large(spike, ref, torch) -> dict:
+    """S3 at ``PRNG_LARGE_WORDS`` words and S4 at ``COLUMN_SUM_LARGE``
+    (one each, beyond the spike's shapes, where the bound is no longer
+    the launch): each bit-equal to its plain version, timed by CUDA events
+    over 20 calls (S4 in turns with ``sum(0)``, three rounds, the least of
+    each) beside its bound."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(16)
+    seed = torch.tensor([2026], dtype=torch.int32, device=dev)
+    x = torch.randn(COLUMN_SUM_LARGE, generator=gen, device=dev)
+    out = {}
+    for name, kern, plain, lib, args in (
+            ("prng_bits", spike.prng_bits, ref.prng_bits_ref, None,
+             (seed, (PRNG_LARGE_WORDS,))),
+            ("column_sum", spike.column_sum, ref.column_sum_ref,
+             lambda x: x.sum(0, keepdim=True), (x,))):
+        got = kern(*args)
+        err = (got.double() - plain(*args).double()).abs().max().item()
+        check(err == 0.0, f"probe {name} at its large shape differs from "
+              f"its plain version ({err:.3g})")
+        loops = [(cuda_ms(lambda: kern(*args), 20),
+                  None if lib is None else cuda_ms(lambda: lib(*args), 20))
+                 for _ in range(3)]
+        ms = min(k for k, _ in loops)
+        lib_ms = None if lib is None else min(l for _, l in loops)
+        bound_s, by = probe_bound_s(name, args, got)
+        dims = args[1] if name == "prng_bits" else tuple(args[0].shape)
+        out[name] = {"large_shape": str(dims), "large_ms": ms,
+                     "large_bound_ms": bound_s * 1e3, "large_bound_by": by,
+                     "large_share": bound_s * 1e3 / ms,
+                     "large_library_ms": lib_ms, "large_max_abs_err": err}
+        log(f"timing probe {name} at {dims}: kernel "
+            + ", ".join(f"{k:.4f}" for k, _ in loops) + " ms"
+            + ("" if lib is None else ", sum(0) " + ", ".join(
+                f"{l:.4f}" for _, l in loops) + " ms")
+            + f"; bound {bound_s * 1e3:.4f} ms ({by}), "
+            f"{bound_s * 1e3 / ms:.1%} of it"
+            + ("" if lib is None else f", kernel/sum(0) {ms / lib_ms:.3f}"))
+        del got
+    del x
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_probes(spike, ref, torch) -> list:
     """S1-S4 at the spike script's shapes: first on its own inputs, one
     launch each with the counters at 0 (the probes' path), then on random
     inputs of the same shapes; each held against its plain version and
-    timed beside its library call.  They are launch-bound: the rows'
-    bounds count bytes (and S3's threefry operations)."""
+    timed beside its library call (S3, which has none, beside S1's op).
+    Every probe must run its torch op's kernel.  Then S3 and S4 at large
+    shapes (``phase_probes_large``)."""
     dev, f32 = "cuda", torch.float32
     gen = torch.Generator().manual_seed(12)
 
@@ -1238,7 +1415,11 @@ def phase_probes(spike, ref, torch) -> list:
         f"{[float(o.float().sum()) for o in outs]}")
     loaded = {str(Path(lib).resolve()) for lib in torch.ops.loaded_libraries}
     check(str(spike.OPS_LIBRARY.path().resolve()) in loaded,
-          "S1/S2 ran without loading their torch-op library")
+          "the probes ran without loading their torch-op library")
+    bound = [str(op) for op in (spike._ADD, spike._DOUBLE, spike._PRNG,
+                                spike._COLUMN_SUM)]
+    check(bound == [f"repro_spike.{n}.default" for n in PROBE_KERNELS],
+          f"the probes are bound to {bound}, not to their torch ops")
     rows = []
     for (name, tpu, kern, plain, lib, spike_in, args), out in zip(probes,
                                                                   outs):
@@ -1251,18 +1432,10 @@ def phase_probes(spike, ref, torch) -> list:
                   f"probe {name}: {got.dtype} {tuple(got.shape)} against "
                   f"{want.dtype} {tuple(want.shape)}")
             err = max(err, (got.double() - want.double()).abs().max().item())
-        check(err <= (1e-6 if name == "column_sum" else 0.0),
-              f"probe {name} disagrees with its plain version ({err:.3g})")
-        x = args[0]
-        in_bytes = sum(a.numel() * a.element_size() for a in args
-                       if isinstance(a, torch.Tensor))
-        by_bytes = (in_bytes + out.numel() * 4) / HBM_BYTES_PER_S
-        if name == "prng_bits":
-            by_ops = prng_bound_s(1, out.numel())
-        else:   # one add or multiply per input element
-            by_ops = x.numel() / PEAK_FLOPS["float32"]
-        bound_s, by = ((by_ops, "operations") if by_ops > by_bytes
-                       else (by_bytes, "bytes"))
+        check(err == 0.0, f"probe {name} differs from its plain version "
+              f"({err:.3g})")
+        bound_s, by = probe_bound_s(name, args, out)
+
         def kern_call():
             return kern(*args)
 
@@ -1279,6 +1452,8 @@ def phase_probes(spike, ref, torch) -> list:
         lib_text = "none"
         plain_ms = min(cuda_ms(lambda: plain(*args), 200) for _ in range(2))
         dev_us, dev_names, kept = device_us(kern_call, 200)
+        check(dev_names and all(PROBE_KERNELS[name] in n for n in dev_names),
+              f"probe {name} ran {dev_names}, not {PROBE_KERNELS[name]}")
         if lib is not None:
             lib_dev_us, lib_names, lib_kept = device_us(lib_call, 200)
             lib_text = (f"{lib_ms * 1e3:.2f} us, device "
@@ -1287,7 +1462,10 @@ def phase_probes(spike, ref, torch) -> list:
                         f"{ms / lib_ms:.3f} per call")
             if dev_us is not None and lib_dev_us is not None:
                 lib_text += f", {dev_us / lib_dev_us:.3f} on the device"
-        dims = args[1] if name == "prng_bits" else tuple(x.shape)
+        else:   # S3: beside S1's op, the one-launch op of the same binding
+            lib_text = (f"none; kernel/S1 {ms / rows[0]['ms']:.3f} per call "
+                        "in this process")
+        dims = args[1] if name == "prng_bits" else tuple(args[0].shape)
         shape = (f"{dims}: the spike's shape; launch-bound, times per call "
                  "in a loop of 200")
         log(f"timing probe {name}: loops of 200 in turns, us per call "
@@ -1299,13 +1477,8 @@ def phase_probes(spike, ref, torch) -> list:
             f"200 kept); plain "
             f"{plain_ms * 1e3:.2f} us; library {lib_text}; bound "
             f"{bound_s * 1e9:.2f} ns ({by}), max|err| {err:.3g}, {shape}")
-        source, binding = "spike.cu", None
-        if name in ("add", "double_blocks"):
-            check(any("elementwise_kernel" in n for n in dev_names),
-                  f"probe {name} ran {dev_names}, not the elementwise kernel")
-            source = "spike_elementwise.cu"
-            binding = ("src/repro_torch/kernels/csrc/spike_ops.cpp: "
-                       f"torch.ops.repro_spike.{name}")
+        source = ("spike_elementwise.cu" if name in ("add", "double_blocks")
+                  else "spike.cu")
         rows.append({"name": f"spike_{name}", "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{source}",
                      "replaces": tpu, "launches": launches[name],
@@ -1314,9 +1487,16 @@ def phase_probes(spike, ref, torch) -> list:
                      "library_ms": lib_ms, "device_us": dev_us,
                      "library_device_us": lib_dev_us, "device_calls": 200,
                      "device_kept": kept, "library_device_kept": lib_kept,
+                     "per_call_vs_library": (None if lib is None
+                                             else ms / lib_ms),
+                     "binding": "src/repro_torch/kernels/csrc/spike_ops.cpp"
+                                f": torch.ops.repro_spike.{name}",
                      "shape": shape})
-        if binding:
-            rows[-1]["binding"] = binding
+        if name == "prng_bits":
+            rows[-1]["per_call_vs_add"] = ms / rows[0]["ms"]
+    large = phase_probes_large(spike, ref, torch)
+    for row in rows:
+        row.update(large.get(row["name"][len("spike_"):], {}))
     return rows
 
 
@@ -1343,8 +1523,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
     t_start = t0 = time.time()
-    libraries = [rs.LIBRARY, fa.LIBRARY, fa.WGMMA_LIBRARY, spike.LIBRARY,
-                 spike.OPS_LIBRARY]
+    libraries = [rs.LIBRARY, fa.LIBRARY, fa.WGMMA_LIBRARY, spike.OPS_LIBRARY]
     reports = _build.build_all(libraries)
     for name, (report, _) in reports.items():
         log(f"ptxas {name}:\n{report or 'built already'}")
@@ -1365,18 +1544,28 @@ def main() -> int:
         f"template instance: {tc_sass or 'not read'}")
     check(len(tc_sass) == 2 and all(c["HGMMA"] > 0 for c in tc_sass.values()),
           "the tensor-core flash kernel's SASS holds no HGMMA")
-    ew_sass = sass_opcodes(read_sass(_build, spike.OPS_LIBRARY),
-                           "elementwise_kernel", ("LDG.128", "STG.128"),
-                           wide_access)
-    log(f"sass: the elementwise probes S1/S2, 16-byte loads and stores per "
-        f"template instance (one per op): {ew_sass or 'not read'}")
-    check(len(ew_sass) == 2 and all(c["LDG.128"] > 0 and c["STG.128"] > 0
-                                    for c in ew_sass.values()),
+    probe_sass = read_sass(_build, spike.OPS_LIBRARY)
+    wide = {k: sass_opcodes(probe_sass, k, ("LDG.128", "STG.128"),
+                            wide_access) for k in PROBE_KERNELS.values()}
+    log(f"sass: the probes' 16-byte loads and stores per kernel (S1/S2: one "
+        f"template instance per op): {wide}")
+    check(len(wide["elementwise_kernel"]) == 2
+          and all(c["LDG.128"] > 0 and c["STG.128"] > 0
+                  for c in wide["elementwise_kernel"].values()),
           "the elementwise probes' SASS holds no 16-byte loads and stores")
+    check(len(wide["column_sum_vec4_kernel"]) == 1
+          and all(c["LDG.128"] > 0
+                  for c in wide["column_sum_vec4_kernel"].values()),
+          "S4's SASS holds no 16-byte load")
+    check(len(wide["prng_vec4_kernel"]) == 1
+          and all(c["STG.128"] > 0
+                  for c in wide["prng_vec4_kernel"].values()),
+          "S3's SASS holds no 16-byte store")
 
     phase_rng(tr, torch)
     errs = phase_kernels(tr, ref, rs, torch)
-    errs["flash_attention"], f32_err = phase_flash_kernel(fa, ref, torch)
+    errs["flash_attention"], f32_err, early = phase_flash_kernel(fa, ref,
+                                                                 torch)
     # each path runs with the counters at 0 and is read right after; each
     # kernel is also held against its plain version at the shapes its
     # path gave it
@@ -1410,6 +1599,8 @@ def main() -> int:
                                    launches["flash_attention"],
                                    errs["flash_attention"]))
     rows[-1].update(fma_f32_max_abs_err=f32_err,
+                    early_rows_excess=early["kernel"],
+                    early_rows_sdpa_excess=early["sdpa"],
                     sass_opcodes=list(tc_sass.values()))
     rows += phase_probes(spike, ref, torch)
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f}s, "

@@ -7,9 +7,9 @@ headers (``csrc/*.cuh``) and the flags so that an edit rebuilds:
 
 * ``CudaLibrary``: one ``csrc/*.cu`` with a plain C interface, loaded
   with ``ctypes``;
-* ``TorchOpLibrary``: a ``.cu`` of kernels and a ``.cpp`` that registers
-  them as torch ops (``TORCH_LIBRARY``), linked against torch's own
-  libraries and loaded with ``torch.ops.load_library``.  The binding
+* ``TorchOpLibrary``: ``.cu`` sources of kernels and a ``.cpp`` that
+  registers them as torch ops (``TORCH_LIBRARY``), linked against torch's
+  own libraries and loaded with ``torch.ops.load_library``.  The binding
   includes only torch's core headers, never ``torch/extension.h``, so the
   host compiler takes seconds on it; its hash also covers torch's version
   and C++ ABI, so a new torch rebuilds it.
@@ -128,21 +128,21 @@ class CudaLibrary(_Library):
 
 
 class TorchOpLibrary(_Library):
-    """A ``.cu`` of kernels with ``extern "C"`` launchers and the ``.cpp``
-    binding that registers them as torch ops, linked by one ``nvcc`` into
-    ``lib<binding stem>-<hash>.so`` against torch's ``c10``, ``c10_cuda``,
-    ``torch_cpu`` and ``torch_cuda``.  ``load`` builds the library if it is
-    missing and loads it once; the ops are then
+    """``.cu`` sources of kernels with ``extern "C"`` launchers and the
+    ``.cpp`` binding that registers them as torch ops, linked by one
+    ``nvcc`` into ``lib<binding stem>-<hash>.so`` against torch's ``c10``,
+    ``c10_cuda``, ``torch_cpu`` and ``torch_cuda``.  ``load`` builds the
+    library if it is missing and loads it once; the ops are then
     ``torch.ops.<namespace>.<name>``."""
 
-    def __init__(self, source: Path, binding: Path):
-        super().__init__(source)
-        self.binding = binding
-        self.name, self.stem = f"{source.name}+{binding.name}", binding.stem
+    def __init__(self, kernels: Sequence[Path], binding: Path):
+        super().__init__(binding)
+        self.kernels = tuple(kernels)
+        self.name = "+".join(p.name for p in (*self.kernels, binding))
         self._loaded = False
 
     def sources(self) -> Tuple[Path, ...]:
-        return (self.source, self.binding)
+        return (*self.kernels, self.source)
 
     def flags(self) -> List[str]:
         import torch

@@ -13,10 +13,15 @@
 //     causal tile's last row are skipped;
 //   * out = acc / max(l, 1e-20), rounded to bf16;
 //   * query head h reads kv head h / group: K and V are never repeated.
-// One difference of arithmetic: p = exp(s - m) is rounded to bf16 before
-// the p . v product (the tensor cores take bf16 operands); l sums the
-// float32 p, as the reference does.  The scale is folded into exp2f with
-// log2(e), so the running max lives in the log2 domain.
+// The tensor cores take bf16 operands, and the reference keeps p =
+// exp(s - m) in float32 for the p . v product.  So p goes in as a bf16
+// pair, hi = bf16(p) and lo = bf16(p - hi), in two products that add into
+// the same float32 accumulator: hi + lo is p within 2^-16 p, where hi
+// alone left up to 2^-8 p, which put early causal rows of outputs >= 4
+// (few keys, each p weighing much) more than one bf16 step off the
+// reference.  l sums the float32 p, as the reference does.  The scale
+// is folded into exp2f with log2(e), so the running max lives in the log2
+// domain.
 //
 // What bounds it on the H100: operations.  At the scoring path's shape
 // (Hq = 128, Hkv = 16, S = T = 2048, d = 64, causal) it does ~6.9e10
@@ -40,9 +45,12 @@
 //   2. scale, mask (diagonal and ragged tiles only), row max over the 4
 //      lanes of a row by two shuffles, exp2f, running l and the rescale of
 //      acc -- all on the wgmma accumulator layout;
-//   3. P rounded to bf16 in registers is the A operand of O += P V
-//      (m64n{d}k16, B = V from shared memory): the accumulator layout of S
-//      columns 16k..16k+15 is the A-fragment layout of k-step k;
+//   3. P as bf16 hi and lo parts in registers is the A operand of two
+//      O += P V wgmmas per k-step (m64n{d}k16, B = V from shared memory):
+//      the accumulator layout of S columns 16k..16k+15 is the A-fragment
+//      layout of k-step k.  The lo product is a third more tensor work,
+//      and at d = 128 its operand registers make ptxas spill a few words
+//      under the 168-register cap of a 288-thread CTA;
 //   4. one arrive per warp on the stage's empty barrier.
 // Rows past T come back from TMA as zeros and are masked; rows past S are
 // loaded as zeros and not stored.  Persistent CTAs, ping-pong between the
@@ -159,9 +167,15 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // lo in bits 0-15
-  return *reinterpret_cast<const uint32_t*>(&h);
+// (a, b) as two bf16 pairs, a in bits 0-15 of each: hi = bf16(a), bf16(b)
+// and lo = the bf16 of what hi leaves (a - hi is exact in float32)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // d (64 x 128, f32) = A . B (+ d when scale_d): A and B from shared memory
@@ -345,7 +359,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
-    uint32_t p[kBN / 4];  // bf16 pairs: p[2j] row r, p[2j+1] row r+8
+    // bf16 pairs of P's hi and lo parts: [2j] row r, [2j+1] row r+8
+    uint32_t p_hi[kBN / 4], p_lo[kBN / 4];
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
@@ -353,8 +368,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const float e2 = exp2f(sc[4 * j + 2] - mn1), e3 = exp2f(sc[4 * j + 3] - mn1);
       rs0 += e0 + e1;
       rs1 += e2 + e3;
-      p[2 * j] = pack_bf16(e0, e1);
-      p[2 * j + 1] = pack_bf16(e2, e3);
+      split_bf16(e0, e1, p_hi[2 * j], p_lo[2 * j]);
+      split_bf16(e2, e3, p_hi[2 * j + 1], p_lo[2 * j + 1]);
     }
     l0 = l0 * a0 + rs0;  // this thread's part of the row sum
     l1 = l1 * a1 + rs1;
@@ -366,17 +381,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       acc[4 * j + 3] *= a1;
     }
 
-    // 3. O += P V: k-step kk takes S's column groups 2kk and 2kk+1 as its A
-    // fragment and keys 16kk.. of V (16 rows of 128 bytes per box)
+    // 3. O += P_hi V + P_lo V: k-step kk takes S's column groups 2kk and
+    // 2kk+1 as its A fragments and keys 16kk.. of V (16 rows of 128 bytes
+    // per box)
     mbar_wait(v_full(s), ph);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint64_t db = sw128_desc(vt + kk * 16 * 128, kBN * 128, 1024);
-      if constexpr (D == 64)
-        wgmma_rs_n64(acc, p + 4 * kk, db);
-      else
-        wgmma_rs_n128(acc, p + 4 * kk, db);
+      if constexpr (D == 64) {
+        wgmma_rs_n64(acc, p_hi + 4 * kk, db);
+        wgmma_rs_n64(acc, p_lo + 4 * kk, db);
+      } else {
+        wgmma_rs_n128(acc, p_hi + 4 * kk, db);
+        wgmma_rs_n128(acc, p_lo + 4 * kk, db);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();

@@ -31,11 +31,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 4;
-constexpr int kMaxDevices = 64;
 constexpr long long kMaxElements = 1LL << 30;
 
 struct Add {
@@ -77,28 +78,14 @@ __global__ void elementwise_kernel(const float* __restrict__ x,
   for (int i = done + tid; i < n; i += stride) o[i] = op(x[i], y[i]);
 }
 
-int sm_count() {
-  static int counts[kMaxDevices];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
-    return 132;
-  if (counts[dev] == 0) {
-    int sms = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    counts[dev] = sms > 0 ? sms : 132;
-  }
-  return counts[dev];
-}
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
 template <class Op>
 cudaError_t launch(const float* x, const float* y, float* o, long long n,
                    cudaStream_t stream) {
   if (n < 0 || n > kMaxElements) return cudaErrorInvalidValue;
-  const bool vec = aligned16(x) && aligned16(y) && aligned16(o);
+  const bool vec = probe_grid::aligned16(x) && probe_grid::aligned16(y) &&
+                   probe_grid::aligned16(o);
   const long long items = vec ? (n >> 2) + (n & 3) : n;
-  const long long cap = (long long)sm_count() * kBlocksPerSm;
+  const long long cap = (long long)probe_grid::sm_count() * kBlocksPerSm;
   long long blocks = (items + kThreads - 1) / kThreads;
   blocks = blocks < 1 ? 1 : (blocks < cap ? blocks : cap);
   elementwise_kernel<Op><<<(unsigned)blocks, kThreads, 0, stream>>>(

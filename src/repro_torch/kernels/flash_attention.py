@@ -9,7 +9,8 @@ call takes is decided from its dtype and head dim before the launch
 * ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bfloat16 with head dim
   64 or 128, the head dims of every dense config of the port.  Both
   products run on Hopper's tensor cores (wgmma), the K/V tiles arrive by
-  TMA; p is rounded to bf16 before the p·v product.
+  TMA; p enters the p·v product as a bf16 pair (hi, lo) in two products
+  into one float32 accumulator, within 2^-16 of the float32 p.
 * ``"fma"`` (``csrc/flash_attention.cu``): float32, and bfloat16 with head
   dim 16 or 32.  Scalar float32 FMAs, so float32 stays within 2e-5 of the
   plain version, which no tensor-core type (TF32, bf16) can meet.

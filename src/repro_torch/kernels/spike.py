@@ -16,20 +16,19 @@ at that script's shapes:
   adding the rows in order, as the ``fori_loop`` does.
 
 S1 and S2 are elementwise kernels with 16-byte accesses
-(``csrc/spike_elementwise.cu``) bound as the torch ops
-``torch.ops.repro_spike.add`` and ``double_blocks``
-(``csrc/spike_ops.cpp``), which check their inputs, guard the device, take
-torch's current stream and allocate in C++: a CUDA tensor goes straight
-to the op.  S3 and S4 (``csrc/spike.cu``) are called through ``ctypes``.
+(``csrc/spike_elementwise.cu``), S3 and S4 kernels with 16-byte stores and
+loads (``csrc/spike.cu``); all four are bound as the torch ops
+``torch.ops.repro_spike.add``, ``double_blocks``, ``prng_bits`` and
+``column_sum`` (``csrc/spike_ops.cpp``, one library), which check their
+inputs, guard the device, take torch's current stream and allocate in
+C++: a CUDA tensor goes straight to the op.
 
-Every wrapper checks its inputs; for tensors on the CPU it takes the plain
-version in ``kernels/ref.py``, for CUDA tensors it launches the kernel on
-torch's current stream or raises.  ``LAUNCHES`` counts the launches.
+For tensors on the CPU every wrapper checks its inputs and takes the plain
+version in ``kernels/ref.py``; for CUDA tensors the op launches the kernel
+on torch's current stream or raises.  ``LAUNCHES`` counts the launches.
 """
 from __future__ import annotations
 
-import ctypes
-import math
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -42,31 +41,20 @@ LAUNCHES: Dict[str, int] = {"add": 0, "double_blocks": 0, "prng_bits": 0,
                             "column_sum": 0}
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCE = CSRC / "spike.cu"
-
-
-def _declare(lib: ctypes.CDLL) -> None:
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.spike_prng.argtypes = [p, p, ll, p]
-    lib.spike_column_sum.argtypes = [p, p, i, i, p]
-    for fn in (lib.spike_prng, lib.spike_column_sum):
-        fn.restype = i
-    lib.spike_error_string.argtypes = [i]
-    lib.spike_error_string.restype = ctypes.c_char_p
-
-
-LIBRARY = _build.CudaLibrary(SOURCE, _declare)
-OPS_LIBRARY = _build.TorchOpLibrary(CSRC / "spike_elementwise.cu",
-                                    CSRC / "spike_ops.cpp")
-#: ``torch.ops.repro_spike.{add,double_blocks}.default``, once loaded
-_ADD = _DOUBLE = None
+OPS_LIBRARY = _build.TorchOpLibrary(
+    (CSRC / "spike_elementwise.cu", CSRC / "spike.cu"),
+    CSRC / "spike_ops.cpp")
+#: ``torch.ops.repro_spike.{add,double_blocks,prng_bits,column_sum}.default``,
+#: once loaded
+_ADD = _DOUBLE = _PRNG = _COLUMN_SUM = None
 
 
 def _load_ops() -> None:
-    global _ADD, _DOUBLE
+    global _ADD, _DOUBLE, _PRNG, _COLUMN_SUM
     OPS_LIBRARY.load()
-    _ADD = torch.ops.repro_spike.add.default
-    _DOUBLE = torch.ops.repro_spike.double_blocks.default
+    ops = torch.ops.repro_spike
+    _ADD, _DOUBLE = ops.add.default, ops.double_blocks.default
+    _PRNG, _COLUMN_SUM = ops.prng_bits.default, ops.column_sum.default
 
 
 def reset_launches() -> None:
@@ -89,16 +77,6 @@ def _check_blocks(x: torch.Tensor, block_rows: int) -> None:
     if block_rows < 1 or (x.dim() == 2 and x.shape[0] % block_rows):
         raise ValueError(f"R of x {tuple(x.shape)} must be a multiple of "
                          f"block_rows={block_rows}")
-
-
-def _launch(name: str, fn, out: torch.Tensor, *args) -> torch.Tensor:
-    with torch.cuda.device(out.device):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        msg = LIBRARY.lib().spike_error_string(rc).decode()
-        raise RuntimeError(f"{name}: launch failed: {msg} ({rc})")
-    LAUNCHES[name] += 1
-    return out
 
 
 def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -138,27 +116,29 @@ def double_blocks(x: torch.Tensor, block_rows: int = 128) -> torch.Tensor:
 def prng_bits(seed: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """S3: the int32 patterns of ``random.bits(PRNGKey(seed[0]), shape)``
     for a (1,) int32 ``seed``, on seed's device."""
+    if seed.is_cuda:
+        if _PRNG is None:
+            _load_ops()
+        out = _PRNG(seed, shape)
+        LAUNCHES["prng_bits"] += 1
+        return out
     _check("seed", seed, torch.int32, 1)
     if seed.numel() != 1:
         raise ValueError(f"seed must hold one int32, got {seed.numel()}")
     shape = tuple(int(s) for s in shape)
-    if seed.device.type == "cpu":
-        return ref.prng_bits_ref(seed, shape)
-    out = torch.empty(shape, dtype=torch.int32, device=seed.device)
-    if out.numel() == 0:
-        return out
-    return _launch("prng_bits", LIBRARY.lib().spike_prng, out,
-                   seed.data_ptr(), out.data_ptr(), math.prod(shape))
+    if min(shape, default=0) < 0:
+        raise ValueError(f"shape {list(shape)} has a negative size")
+    return ref.prng_bits_ref(seed, shape)
 
 
 def column_sum(x: torch.Tensor) -> torch.Tensor:
-    """S4: (R, C) float32 → (1, C), the rows added in order 0..R-1."""
-    _check("x", x, torch.float32, 2)
-    R, C = x.shape
-    if x.device.type == "cpu":
-        return ref.column_sum_ref(x)
-    out = torch.empty((1, C), dtype=torch.float32, device=x.device)
-    if C == 0:
+    """S4: (R, C) float32 → (1, C), the rows added in order 0..R-1 (on the
+    card at most 2^31 - 1 elements)."""
+    if x.is_cuda:
+        if _COLUMN_SUM is None:
+            _load_ops()
+        out = _COLUMN_SUM(x)
+        LAUNCHES["column_sum"] += 1
         return out
-    return _launch("column_sum", LIBRARY.lib().spike_column_sum, out,
-                   x.data_ptr(), out.data_ptr(), R, C)
+    _check("x", x, torch.float32, 2)
+    return ref.column_sum_ref(x)

@@ -122,8 +122,9 @@ def _tensor_core_model(q, k, v, *, causal, group, tile=128):
     """The wgmma kernel's arithmetic on the CPU: bf16 q, k, v; float32
     scores over 128-key tiles in the log2 domain (scale times log2 e);
     NEG_INF = -1e30 where col > row; online softmax with a float32 running
-    (m, l, acc); p rounded to bf16 before the p·v product, l summed from
-    the float32 p; out = acc / max(l, 1e-20) rounded to bf16."""
+    (m, l, acc); p as a bf16 pair, hi = bf16(p) and lo = bf16(p - hi),
+    in two p·v products into the float32 acc, l summed from the float32 p;
+    out = acc / max(l, 1e-20) rounded to bf16."""
     Hq, S, d = q.shape
     T = k.shape[1]
     kk = k.float().repeat_interleave(group, dim=0)
@@ -143,8 +144,11 @@ def _tensor_core_model(q, k, v, *, causal, group, tile=128):
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new[..., None])
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "hst,htd->hsd", p.to(torch.bfloat16).float(), vv[:, c0:c0 + tile])
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        v_t = vv[:, c0:c0 + tile]
+        acc = (acc * alpha[..., None] + torch.einsum("hst,htd->hsd", hi, v_t)
+               + torch.einsum("hst,htd->hsd", lo, v_t))
         m = m_new
     return (acc / l.clamp_min(1e-20)[..., None]).to(torch.bfloat16)
 
@@ -153,8 +157,8 @@ def _tensor_core_model(q, k, v, *, causal, group, tile=128):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dh", [64, 128])
 def test_tensor_core_arithmetic_matches_pallas(dh, causal, KV, group):
-    """bf16 p in the p·v product stays within the bf16 tolerance of the
-    Pallas kernel (float32 p), across two key tiles."""
+    """p as a bf16 (hi, lo) pair in the p·v products stays within the bf16
+    tolerance of the Pallas kernel (float32 p), across two key tiles."""
     H, S = KV * group, 256
     q, k, v = _inputs(H, KV, S, S, dh, "bfloat16", seed=dh + group)
     want = jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -162,3 +166,39 @@ def test_tensor_core_arithmetic_matches_pallas(dh, causal, KV, group):
     got = _tensor_core_model(*map(tensor_from_numpy, (q, k, v)),
                              causal=causal, group=group)
     assert _err(got, want) < TOL["bfloat16"]
+
+
+#: V's scale in the early-row checks: early causal rows then reach |out| of
+#: 4–32, where one bf16 step is 2^-5–2^-3
+V_SCALE = 8.0
+
+
+def _early_row_excess(got, want, v_scale=V_SCALE):
+    """max |got − want| over its limit: one bf16 step at |want|,
+    ``2**(floor(log2|want|) − 7)``, where |want| ≥ 4; elsewhere the bf16
+    tolerance times the V scale (attention is linear in V).  At most 1
+    passes."""
+    got, want = got.float(), want.float()
+    a = want.abs()
+    step = torch.exp2(torch.floor(torch.log2(a.clamp_min(4.0))) - 7)
+    limit = torch.where(a >= 4, step,
+                        torch.full_like(a, TOL["bfloat16"] * v_scale))
+    return ((got - want).abs() / limit).max().item()
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_tensor_core_arithmetic_holds_early_causal_rows(dh):
+    """With V scaled by 8 the early causal rows (few keys, each p weighing
+    much) reach |out| ≥ 4; the kernel's arithmetic stays within one bf16
+    step there of the Pallas kernel in float32 on the same bf16 values."""
+    KV, group, S = 4, 4, 256
+    q, k, v = _inputs(KV * group, KV, S, S, dh, "bfloat16", seed=dh)
+    v = (v.astype(np.float32) * V_SCALE).astype(ml_dtypes.bfloat16)
+    want = jops.attention(*(jnp.asarray(a.astype(np.float32))
+                            for a in (q, k, v)),
+                          causal=True, group=group, blk_q=128, blk_k=128)
+    want = torch.from_numpy(np.array(want))
+    assert (want[:, :16].abs() >= 4).any()
+    got = _tensor_core_model(*map(tensor_from_numpy, (q, k, v)),
+                             causal=True, group=group)
+    assert _early_row_excess(got, want) <= 1.0

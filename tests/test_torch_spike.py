@@ -10,12 +10,12 @@ in float32).  S3's TPU kernel draws the TPU's hardware bits, which no CPU
 or CUDA card reproduces (it fails in interpret mode on a CPU), so its
 counterpart is held to ``jax.random.bits`` of the same seed instead.
 
-S1 and S2 on the card are torch ops of a library built from
-``csrc/spike_elementwise.cu`` and ``csrc/spike_ops.cpp``; this CPU never
-builds or loads it.  What the CPU can check is the wrappers' CUDA branch,
-on a stand-in for a CUDA tensor: straight to the op, one count per call,
-no Python device guard, no ``ctypes``, no fallback to the plain version;
-and the library's build flags and headers.
+S1–S4 on the card are torch ops of one library built from
+``csrc/spike_elementwise.cu``, ``csrc/spike.cu`` and ``csrc/spike_ops.cpp``;
+this CPU never builds or loads it.  What the CPU can check is the
+wrappers' CUDA branch, on a stand-in for a CUDA tensor: straight to the
+op, one count per call, no Python device guard, no ``ctypes``, no fallback
+to the plain version; and the library's sources, build flags and headers.
 """
 import re
 import runpy
@@ -101,6 +101,13 @@ def test_prng_bits_is_jax_random_bits(seed, shape):
     (lambda: spike.prng_bits(torch.tensor([1, 2], dtype=torch.int32),
                              (8, 128)), "one int32"),
     (lambda: spike.prng_bits(torch.tensor([1]), (8, 128)), "int32"),
+    (lambda: spike.prng_bits(torch.ones((1, 1), dtype=torch.int32), (8,)),
+     "1-d"),
+    (lambda: spike.prng_bits(torch.tensor([1], dtype=torch.int32),
+                             (8, -1)), "negative"),
+    (lambda: spike.column_sum(torch.zeros(128)), "2-d"),
+    (lambda: spike.column_sum(torch.zeros(8, 128, dtype=torch.float64)),
+     "float32"),
 ])
 def test_probes_reject_what_the_kernels_do_not_take(call, match):
     with pytest.raises(ValueError, match=match):
@@ -118,8 +125,8 @@ def test_cpu_calls_launch_no_kernel():
 
 
 class _CudaStandIn:
-    """What the CUDA branch of ``add``/``double_blocks`` may read of a
-    CUDA tensor before it hands it to the op."""
+    """What the CUDA branch of a probe may read of a CUDA tensor before it
+    hands it to the op."""
     is_cuda = True
 
     def __init__(self, *shape):
@@ -133,37 +140,70 @@ def _refuse(*args, **kwargs):
     raise AssertionError("the CUDA branch left the torch op")
 
 
+PLAIN_VERSIONS = ("add_ref", "double_ref", "prng_bits_ref",
+                  "column_sum_ref")
+
+
 @pytest.fixture
 def op_calls(monkeypatch):
     """The ops replaced by recorders; the Python device guard, the
-    current-stream lookup, the ctypes library and the plain versions
-    replaced by failures."""
+    current-stream lookup and the plain versions replaced by failures.
+    The module has no ctypes library left to replace."""
+    assert not hasattr(spike, "LIBRARY") and not hasattr(spike, "ctypes")
     calls = []
     monkeypatch.setattr(spike, "_ADD",
                         lambda x, y: calls.append(("add", x, y)) or "sum")
     monkeypatch.setattr(spike, "_DOUBLE",
                         lambda x: calls.append(("double_blocks", x))
                         or "twice")
+    monkeypatch.setattr(spike, "_PRNG",
+                        lambda seed, shape: calls.append(
+                            ("prng_bits", seed, shape)) or "bits")
+    monkeypatch.setattr(spike, "_COLUMN_SUM",
+                        lambda x: calls.append(("column_sum", x)) or "sums")
     for obj, attr in ((torch.cuda, "device"), (torch.cuda, "current_stream"),
-                      (spike.LIBRARY, "lib"), (spike.ref, "add_ref"),
-                      (spike.ref, "double_ref")):
+                      *((spike.ref, f) for f in PLAIN_VERSIONS)):
         monkeypatch.setattr(obj, attr, _refuse)
     spike.reset_launches()
     return calls
 
 
-@pytest.mark.parametrize("calls_per_probe", [1, 3])
-def test_cuda_branch_goes_straight_to_the_op(op_calls, calls_per_probe):
+def _probe_calls():
+    """name → (the call on stand-ins, what its op gets, what it returns)"""
     x, y = _CudaStandIn(8, 128), _CudaStandIn(8, 128)
-    big = _CudaStandIn(1024, 256)
+    big, seed = _CudaStandIn(1024, 256), _CudaStandIn(1)
+    return {
+        "add": (lambda: spike.add(x, y), ("add", x, y), "sum"),
+        "double_blocks": (lambda: spike.double_blocks(big),
+                          ("double_blocks", big), "twice"),
+        "prng_bits": (lambda: spike.prng_bits(seed, (8, 128)),
+                      ("prng_bits", seed, (8, 128)), "bits"),
+        "column_sum": (lambda: spike.column_sum(x), ("column_sum", x),
+                       "sums"),
+    }
+
+
+@pytest.mark.parametrize("calls_per_probe", [1, 3])
+@pytest.mark.parametrize("name", list(spike.LAUNCHES))
+def test_cuda_branch_goes_straight_to_the_op(op_calls, name,
+                                             calls_per_probe):
+    call, recorded, result = _probe_calls()[name]
     for _ in range(calls_per_probe):
-        assert spike.add(x, y) == "sum"
-        assert spike.double_blocks(big) == "twice"
-    assert op_calls == [("add", x, y), ("double_blocks", big)] * \
-        calls_per_probe
-    assert spike.LAUNCHES == {"add": calls_per_probe,
-                              "double_blocks": calls_per_probe,
-                              "prng_bits": 0, "column_sum": 0}
+        assert call() == result
+    assert op_calls == [recorded] * calls_per_probe
+    assert spike.LAUNCHES == {k: calls_per_probe if k == name else 0
+                              for k in spike.LAUNCHES}
+
+
+def test_spike_module_binds_no_ctypes_library():
+    """Every probe goes through the one torch-op library; the module
+    imports no ``ctypes`` and keeps no ctypes library or launcher."""
+    text = Path(spike.__file__).read_text()
+    assert not re.search(r"^\s*(import|from)\s+ctypes", text, re.M)
+    for attr in ("LIBRARY", "_declare", "_launch", "ctypes"):
+        assert not hasattr(spike, attr), attr
+    assert [p.name for p in spike.OPS_LIBRARY.sources()] == [
+        "spike_elementwise.cu", "spike.cu", "spike_ops.cpp"]
 
 
 @pytest.mark.parametrize("shape,block_rows", [((200, 128), 128),
@@ -176,29 +216,39 @@ def test_cuda_branch_keeps_the_row_block_contract(op_calls, shape,
     assert op_calls == [] and spike.LAUNCHES["double_blocks"] == 0
 
 
-@pytest.mark.parametrize("name", ["add", "double_blocks"])
+@pytest.mark.parametrize("name", list(spike.LAUNCHES))
 def test_cuda_branch_raises_when_the_ops_do_not_load(monkeypatch, name):
     """A library that does not build raises; the plain version is never
     taken for a CUDA tensor."""
     def no_nvcc():
         raise RuntimeError("nvcc not found")
-    monkeypatch.setattr(spike, "_ADD", None)
-    monkeypatch.setattr(spike, "_DOUBLE", None)
+    for attr in ("_ADD", "_DOUBLE", "_PRNG", "_COLUMN_SUM"):
+        monkeypatch.setattr(spike, attr, None)
     monkeypatch.setattr(spike.OPS_LIBRARY, "load", no_nvcc)
-    for attr in ("add_ref", "double_ref"):
+    for attr in PLAIN_VERSIONS:
         monkeypatch.setattr(spike.ref, attr, _refuse)
     spike.reset_launches()
-    x = _CudaStandIn(128, 128)
+    call, _, _ = _probe_calls()[name]
     with pytest.raises(RuntimeError, match="nvcc"):
-        spike.add(x, x) if name == "add" else spike.double_blocks(x)
+        call()
     assert sum(spike.LAUNCHES.values()) == 0
 
 
+#: what the op library's build reads: its sources and the shared headers
+OP_LIBRARY_FILES = ("spike_elementwise.cu", "spike.cu", "spike_ops.cpp",
+                    "grid.cuh", "threefry.cuh")
+
+
+def _op_library_at(d):
+    return _build.TorchOpLibrary((d / "spike_elementwise.cu", d / "spike.cu"),
+                                 d / "spike_ops.cpp")
+
+
 def _op_library(tmp_path):
-    for src in ("spike_elementwise.cu", "spike_ops.cpp"):
+    """The op library over copies of its files in ``tmp_path``."""
+    for src in OP_LIBRARY_FILES:
         shutil.copy(spike.CSRC / src, tmp_path / src)
-    return _build.TorchOpLibrary(tmp_path / "spike_elementwise.cu",
-                                 tmp_path / "spike_ops.cpp")
+    return _op_library_at(tmp_path)
 
 
 def test_op_library_flags(monkeypatch, tmp_path):
@@ -214,8 +264,7 @@ def test_op_library_flags(monkeypatch, tmp_path):
     assert libs and all(f"-Xlinker=-rpath={p}" in flags for p in libs)
 
 
-@pytest.mark.parametrize("edit", ["spike_elementwise.cu", "spike_ops.cpp",
-                                  "torch", "abi"])
+@pytest.mark.parametrize("edit", [*OP_LIBRARY_FILES, "torch", "abi"])
 def test_op_library_name_hashes_what_the_build_reads(monkeypatch, tmp_path,
                                                      edit):
     monkeypatch.setenv("REPRO_TORCH_BUILD", str(tmp_path / "out"))
@@ -230,8 +279,7 @@ def test_op_library_name_hashes_what_the_build_reads(monkeypatch, tmp_path,
     else:
         with open(tmp_path / edit, "a") as f:
             f.write("\n// edited\n")
-    after = _build.TorchOpLibrary(tmp_path / "spike_elementwise.cu",
-                                  tmp_path / "spike_ops.cpp").path()
+    after = _op_library_at(tmp_path).path()
     assert after != before
 
 
@@ -243,9 +291,12 @@ def _includes(name):
 def test_sources_include_no_python_and_no_extension_header():
     """The binding takes torch's core headers, ATen's dispatcher-free CUDA
     allocation and c10's CUDA headers only (no ``torch/extension.h``,
-    nothing of Python); the kernels no torch header at all."""
+    nothing of Python); the kernels no torch header at all, only the
+    runtime's and the repo's own ``csrc/*.cuh``."""
     assert _includes("spike_ops.cpp") == {
         "torch/library.h", "ATen/core/Tensor.h", "ATen/cuda/EmptyTensor.h",
         "c10/cuda/CUDAGuard.h", "c10/cuda/CUDAStream.h"}
     assert _includes("spike_elementwise.cu") == {"cuda_runtime.h",
-                                                 "stdint.h"}
+                                                 "stdint.h", "grid.cuh"}
+    assert _includes("spike.cu") == {"cuda_runtime.h", "stdint.h",
+                                     "grid.cuh", "threefry.cuh"}
