@@ -5,9 +5,9 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per library, all at once) and drives the port's paths on the card:
-graph generation (phases 2-7), fitting (phase 4b), the dense LM's scoring
-forward and serving engine (phases 8-10) and the toolchain probes S1-S4
-(phase 12):
+graph generation (phases 2-7), fitting (phase 4b), writing datasets to
+disk (phase 13), the dense LM's scoring forward and serving engine
+(phases 8-10) and the toolchain probes S1-S4 (phase 12):
 
 1. build the kernels; print the card's name and power limit; read the
    built SASS: the in-register R-MAT kernel's level loop, and the
@@ -86,7 +86,27 @@ forward and serving engine (phases 8-10) and the toolchain probes S1-S4
     time is set beside S1's op), and each one's device time per call,
     kernel and library, from ``torch.profiler``'s kernel events over such
     a loop; then S3 at 2^26 words and S4 at (64, 2^20), bit-equal, timed
-    beside their bounds (and ``sum(0)``) as ``large_*`` fields.
+    beside their bounds (and ``sum(0)``) as ``large_*`` fields;
+13. datastream (run after phase 7): ``DatasetJob`` writes the committed
+    fit to disk on the card. (a) Struct only at ``scale_nodes=64``
+    (163 840 000 int32 edges, 1.31 GB, shards of 2^24, ``pipeline_depth=2``,
+    the auto backend): K2 must launch once per chunk with its counter
+    reset first, ``verify(deep=True)`` must find nothing, the shards in
+    order must equal ``sample_graph_chunked`` of the job's key, k_pref and
+    θ on the card, and K2 its plain version on the largest chunk; the
+    run's stage times, edges/s to disk and bytes on disk are logged, and
+    K2's row of the ``kernels`` line carries its ``streamed_launches``.
+    The same job is then pumped one chunk a group and grouped again
+    (timed beside the first run; each must write its shards, crcs equal).
+    (b) Struct only at ``scale_nodes=4``: the card's dataset through
+    ``cuda_prng`` equals the CPU's through ``cuda_bits``'s plain version,
+    files and manifest. (c) GAN features and the GBDT aligner at
+    ``scale_nodes=16`` (10 240 000 edges, shards of 2^21): serial,
+    pipelined (depth 2, 2 host workers), pipelined and fused, and
+    ``python -m repro_torch.scripts.generate_dataset`` SIGKILLed once its
+    journal holds a record and then ``--resume``d, all byte-identical;
+    each run's stage busy seconds, overlap, stall and edges/s logged.
+    It works in a temporary directory that it removes.
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
 ``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
@@ -860,6 +880,277 @@ def phase_timing(tr, ref, rs, torch, errs: dict, launches: dict,
     return rows
 
 
+#: phase 13's sizes: (a) the main path's full width, struct only; (b) the
+#: card against the CPU; (c) features, alignment and kill/resume
+STREAM_SCALE, STREAM_SHARD = 64, 1 << 24
+STREAM_CPU_SCALE, STREAM_CPU_SHARD = 4, 1 << 18
+STREAM_FEAT_SCALE, STREAM_FEAT_SHARD = 16, 1 << 21
+
+
+def _tree(path) -> dict:
+    """md5 of every shard file and the manifest of a dataset directory."""
+    import hashlib
+    import os
+    out = {}
+    for f in sorted(os.listdir(path)):
+        if f.endswith(".npy") or f == "manifest.json":
+            h = hashlib.md5()
+            with open(os.path.join(path, f), "rb") as fh:
+                for block in iter(lambda: fh.read(1 << 24), b""):
+                    h.update(block)
+            out[f] = h.hexdigest()
+    return out
+
+
+def _sans_executor(path) -> dict:
+    """The manifest without its executor provenance (byte-transparent)."""
+    import os
+    with open(os.path.join(path, "manifest.json")) as f:
+        d = json.load(f)
+    d.pop("executor", None)
+    return d
+
+
+def _dir_bytes(path) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _stage_line(label: str, t: dict, rows: int) -> str:
+    return (f"{label}: wall {t['wall_s']:.3f}s, busy struct "
+            f"{t['gen_struct_s']:.3f}s feat {t['gen_feat_s']:.3f}s align "
+            f"{t['gen_align_s']:.3f}s write {t['write_s']:.3f}s, overlap "
+            f"{t['overlap']:.3f}, stall {t['stall_s']:.3f}s, "
+            f"{rows / t['wall_s']:.4g} edges/s")
+
+
+def _n_groups(sched, ds_source) -> int:
+    """The struct stage's pump groups over every shard of a plan."""
+    return sum(len(ds_source._chunk_groups(
+        [sched.chunk(i) for i in rec.chunk_indices],
+        ds_source.PUMP_GROUP_EDGES)) for rec in sched.shards)
+
+
+def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch) -> dict:
+    """Phase 13: ``DatasetJob`` writes the committed fit to disk.
+
+    (a) struct only at ``scale_nodes=64`` (163 840 000 int32 edges, shards
+    of 2^24, ``pipeline_depth=2``, the auto backend): K2 must launch (its
+    counter reset first); the deep verify finds nothing; the shards in
+    order equal ``sample_graph_chunked`` of the job's key, k_pref and θ on
+    the card; K2 equals its plain version on the largest chunk.  The
+    same job is then pumped one chunk a group and grouped again, timed
+    beside the first run; each writes its shards (manifest crcs equal).
+    (b) struct only at ``scale_nodes=4``: the card's dataset (``cuda_prng``)
+    equals the CPU's (``cuda_bits``'s plain version) file for file,
+    manifest included.
+    (c) GAN features and the GBDT aligner at ``scale_nodes=16`` (10 240 000
+    edges, shards of 2^21): serial, pipelined (depth 2, 2 host workers),
+    pipelined and fused, and the CLI killed (SIGKILL) once its journal
+    holds a record and then resumed, all byte-identical.
+    Returns K2's launches in (a), its max error and the run's numbers."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.datastream import (DatasetJob, FeatureSpec,
+                                        ShardedGraphDataset)
+    from repro_torch.datastream import source as ds_source
+
+    state = convert.load_state(ASSET)
+    pipe = convert.pipeline_from_state(state, device="cuda")
+    work = tempfile.mkdtemp(prefix="chip_smoke_ds_")
+    out = {}
+    try:
+        # (a) the main path's width, struct only
+        fit = pipe.struct.scaled(STREAM_SCALE)
+        path = os.path.join(work, "struct64")
+        job = DatasetJob(fit, path, shard_edges=STREAM_SHARD, seed=0,
+                         pipeline_depth=2)
+        log(f"datastream (a): n={fit.n} m={fit.m} E={fit.E}, shard_edges "
+            f"{STREAM_SHARD}, k_pref {job.k_pref}, "
+            f"{len(job.scheduler.chunks)} chunks in "
+            f"{len(job.scheduler.shards)} shards "
+            f"({_n_groups(job.scheduler, ds_source)} pump groups of >= "
+            f"{ds_source.PUMP_GROUP_EDGES} edges), backend {job.sampler} "
+            f"(stream {job.backend}), no size cut")
+        check(job.sampler == "cuda_prng", "the auto backend is not K2")
+        rs.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        manifest = job.run()
+        wall = time.time() - t0
+        launches = dict(rs.LAUNCHES)
+        t = job.timings
+        check(manifest.is_complete(), "the scale-64 dataset is incomplete")
+        check(launches["rmat_sample_prng"] == len(job.scheduler.chunks),
+              f"K2 launched {launches['rmat_sample_prng']} times for "
+              f"{len(job.scheduler.chunks)} chunks")
+        nbytes = _dir_bytes(path)
+        log(_stage_line("datastream (a) run", t, fit.E)
+            + f"; outer wall {wall:.3f}s, {fit.E / wall:.4g} edges/s to "
+            f"disk, {nbytes} bytes on disk, launches {launches}")
+        t0 = time.time()
+        problems = job.verify(deep=True)
+        t_verify = time.time() - t0
+        check(problems == [], f"deep verify: {problems[:3]}")
+        rs.reset_launches()
+        s, d = rmat.sample_graph_chunked(
+            tr.PRNGKey(0), fit, k_pref=job.k_pref,
+            thetas=job.scheduler.thetas, backend=job.sampler, device="cuda")
+        off, mism = 0, 0
+        for blk in ShardedGraphDataset(path):
+            n = blk.n_edges
+            mism += int((s[off: off + n].cpu().numpy() != blk.src).sum())
+            mism += int((d[off: off + n].cpu().numpy() != blk.dst).sum())
+            off += n
+        check(off == fit.E and mism == 0,
+              f"shards differ from sample_graph_chunked ({mism} ids)")
+        del s, d
+        big = max(job.scheduler.chunks, key=lambda c: c.n_edges)
+        n_s, m_s = fit.n - job.k_pref, fit.m - job.k_pref
+        th = torch.tensor(job.scheduler.thetas[job.k_pref:],
+                          dtype=torch.float32, device="cuda")
+        pad = sampler._pad_edges(big.n_edges,
+                                 sampler.choose_block(big.n_edges))
+        key = job.scheduler.key_for(big)
+        err = max_word_err(
+            rs.rmat_sample_prng(key, th, n_s, m_s, big.n_edges, pad),
+            ref.rmat_prng_ref(key, th, n_s, m_s, big.n_edges, pad))
+        check(err == 0, f"K2 disagrees on the largest chunk (max {err})")
+        log(f"datastream (a): deep verify [] in {t_verify:.3f}s; shards == "
+            f"sample_graph_chunked on the card; K2 vs plain on the largest "
+            f"chunk (n={n_s} m={m_s} E={big.n_edges} stride={pad}): "
+            f"max|err| {err}")
+        out.update(launches=launches["rmat_sample_prng"], err=err,
+                   wall_s=wall, edges_per_s=fit.E / wall, bytes=nbytes,
+                   timings=dict(t), chunks=len(job.scheduler.chunks),
+                   shards=len(job.scheduler.shards))
+        # the same job pumped one chunk a group (a host crossing per
+        # chunk), then grouped again: grouped, one, grouped in one
+        # process, so the two are timed side by side
+        group = ds_source.PUMP_GROUP_EDGES
+        ab = {}
+        for name, g in (("one chunk a group", 1), ("grouped again", group)):
+            p = os.path.join(work, "struct64-" + name.replace(" ", "-"))
+            jab = DatasetJob(fit, p, shard_edges=STREAM_SHARD, seed=0,
+                             pipeline_depth=2)
+            ds_source.PUMP_GROUP_EDGES = g
+            rs.reset_launches()
+            torch.cuda.synchronize()
+            try:
+                jab.run()
+            finally:
+                ds_source.PUMP_GROUP_EDGES = group
+            check(rs.LAUNCHES["rmat_sample_prng"] == len(jab.scheduler.chunks),
+                  f"{name}: K2 launched {rs.LAUNCHES['rmat_sample_prng']} "
+                  f"times for {len(jab.scheduler.chunks)} chunks")
+            check(_sans_executor(p) == _sans_executor(path),
+                  f"the {name} scale-64 dataset differs from the first")
+            ab[name] = dict(jab.timings)
+            log(_stage_line(f"datastream (a) {name}", jab.timings, fit.E)
+                + "; shards and crcs equal the first run's")
+            shutil.rmtree(p)
+        out.update(struct_ab=ab)
+        shutil.rmtree(path)
+
+        # (b) the card against the CPU
+        fit4 = pipe.struct.scaled(STREAM_CPU_SCALE)
+        dirs = {}
+        for dev, backend in (("cuda", None), ("cpu", "cuda_bits")):
+            dirs[dev] = os.path.join(work, f"struct4-{dev}")
+            job4 = DatasetJob(fit4, dirs[dev], shard_edges=STREAM_CPU_SHARD,
+                              seed=0, backend=backend, device=dev)
+            job4.run()
+        same = _tree(dirs["cuda"]) == _tree(dirs["cpu"])
+        log(f"datastream (b): scale {STREAM_CPU_SCALE} (E={fit4.E}, "
+            f"{len(job4.scheduler.shards)} shards): card (cuda_prng) vs "
+            f"CPU (cuda_bits plain) files and manifest identical: {same}")
+        check(same, "the card's dataset differs from the CPU's")
+
+        # (c) features, alignment, kill and resume
+        fit16 = pipe.struct.scaled(STREAM_FEAT_SCALE)
+        spec = FeatureSpec(pipe.features, pipe.aligner)
+        runs = {"serial": dict(pipeline_depth=0, double_buffered=False),
+                "pipelined": dict(pipeline_depth=2, host_workers=2),
+                "fused": dict(pipeline_depth=2, host_workers=2,
+                              fused=True)}
+        trees, feat = {}, {}
+        for name, kw in runs.items():
+            p = os.path.join(work, f"feat-{name}")
+            jobf = DatasetJob(fit16, p, shard_edges=STREAM_FEAT_SHARD,
+                              seed=0, features=spec, **kw)
+            torch.cuda.synchronize()
+            jobf.run()
+            trees[name] = _tree(p)
+            feat[name] = dict(jobf.timings)
+            log(_stage_line(f"datastream (c) {name}", jobf.timings,
+                            fit16.E))
+        check(jobf.verify(deep=True) == [], "featured dataset verify")
+        n_feat_shards = len(jobf.scheduler.shards)
+        cli = os.path.join(work, "feat-cli")
+        cmd = [sys.executable, "-m", "repro_torch.scripts.generate_dataset",
+               "--asset", str(ASSET), "--scale-nodes",
+               str(STREAM_FEAT_SCALE), "--shard-edges",
+               str(STREAM_FEAT_SHARD), "--out", cli, "--pipeline-depth",
+               "2", "--host-workers", "2"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        journal = os.path.join(cli, "progress.jsonl")
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        t0 = time.time()
+        try:
+            while proc.poll() is None and time.time() - t0 < 300:
+                if os.path.exists(journal) and os.path.getsize(journal):
+                    break
+                time.sleep(0.05)
+            killed = proc.poll() is None
+            if killed:
+                proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(journal) as f:
+            at_kill = sum(1 for line in f if line.strip())
+        check(killed and at_kill < n_feat_shards,
+              f"the CLI was not killed mid-run (killed={killed}, "
+              f"{at_kill} of {n_feat_shards} shards journaled)")
+        r = subprocess.run(cmd + ["--resume", "--verify"], env=env,
+                           capture_output=True, text=True, timeout=600)
+        check(r.returncode == 0, f"the resumed CLI failed: "
+              f"{r.stderr[-2000:]}")
+        trees["cli"] = _tree(cli)
+        resumed = [ln for ln in r.stderr.splitlines()
+                   if ln.startswith(("materialized", "stages"))]
+        log(f"datastream (c) cli: SIGKILLed after {at_kill} of "
+            f"{n_feat_shards} shards journaled, resumed: "
+            + "; ".join(resumed))
+        shards_only = {name: {f: h for f, h in files.items()
+                              if f != "manifest.json"}
+                       for name, files in trees.items()}
+        base = shards_only["serial"]
+        same = {name: h == base for name, h in shards_only.items()}
+        manif = {name: _sans_executor(os.path.join(work, f"feat-{name}"))
+                 == _sans_executor(os.path.join(work, "feat-serial"))
+                 for name in trees}
+        log(f"datastream (c): scale {STREAM_FEAT_SCALE} (E={fit16.E}, "
+            f"{n_feat_shards} shards, {len(base)} files): shard files equal "
+            f"to serial: {same}; manifests equal bar the executor: {manif}")
+        check(all(same.values()) and all(manif.values()),
+              "featured runs are not byte-identical")
+        out.update(features=feat, feat_shards=n_feat_shards,
+                   killed_after=at_kill)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        del pipe
+        torch.cuda.empty_cache()
+    return out
+
+
 def attn_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
@@ -1584,6 +1875,9 @@ def main() -> int:
                     ("rmat_sample_uniforms", e3)):
         errs[name] = max(errs[name], e)
     phase_struct_at_scale(tr, rmat, KroneckerFit, rs, torch)
+    stream = phase_datastream(convert, tr, rmat, sampler, ref, rs, torch)
+    errs["rmat_sample_prng"] = max(errs["rmat_sample_prng"], stream["err"])
+    log("datastream: " + json.dumps(stream))
     model, params, launches["flash_attention"], e4 = phase_lm_scoring(
         tr, get_config, Model, transformer, fa, rs, ref, torch)
     errs["flash_attention"] = max(errs["flash_attention"], e4)
@@ -1594,7 +1888,9 @@ def main() -> int:
     if sass:
         rows[-1]["sass_level_loop"] = sass
     rows[-1].update(fit_path_launches=fit_launches,
-                    fit_path_max_abs_err=fit_err)
+                    fit_path_max_abs_err=fit_err,
+                    streamed_launches=stream["launches"],
+                    streamed_max_abs_err=stream["err"])
     rows.append(phase_flash_timing(fa, ref, torch,
                                    launches["flash_attention"],
                                    errs["flash_attention"]))

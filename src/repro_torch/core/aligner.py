@@ -64,6 +64,19 @@ class GBDTAligner:
     ``fit``), or fitted from its models and their holdout qualities
     (``repro_torch.convert``)."""
 
+    #: inference runs through the batched engine on the device: the
+    #: dataset manifest pins the batch and the device class
+    engine_batched = True
+
+    #: feature-stream marker recorded in a dataset manifest
+    #: (``datastream.service._features_meta``).  The port's float sums
+    #: (node features, GBDT carries) agree with the JAX package's
+    #: (``"gbdt-scan-v2"``) only to a tolerance, and rank matching turns a
+    #: last-bit difference into a moved row, so a resume across packages
+    #: must refuse instead of mixing streams.  Bump when the port's sums
+    #: change order.
+    stream_marker = "torch-gbdt-v1"
+
     def __init__(self, schema: TableSchema,
                  cfg: Optional[AlignerConfig] = None, kind: str = "edge", *,
                  cont_models: Optional[List[GBDTRegressor]] = None,
@@ -76,6 +89,23 @@ class GBDTAligner:
         self.cont_models = list(cont_models or [])
         self.cat_models = list(cat_models or [])
         self.col_quality = list(col_quality or [])
+        self._tracer = None
+
+    @property
+    def tracer(self):
+        """Span tracer shared with the per-column GBDT models (set through
+        ``FeatureSpec`` / ``ShardExecutor._adopt_obs``)."""
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, t) -> None:
+        self._tracer = t
+        if t is not None:
+            for m in self.cont_models:
+                m.tracer = t
+            for m in self.cat_models:
+                if m is not None:
+                    m.tracer = t
 
     def _inputs(self, g: Graph) -> torch.Tensor:
         feats = node_features(g)
@@ -223,6 +253,9 @@ class GBDTAligner:
 
 class RandomAligner:
     """Ablation baseline: random permutation of generated rows."""
+
+    #: numpy permutation: no engine batch, no device float sums
+    engine_batched = False
 
     def __init__(self, schema: TableSchema, kind: str = "edge"):
         self.schema = schema

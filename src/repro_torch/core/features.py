@@ -19,6 +19,7 @@ block rule: an explicit ``batch`` is honored exactly, the default is
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -192,7 +193,20 @@ class GANConfig:
 
 class GANFeatureGenerator:
     """Built unfitted from a schema (then ``fit``), or fitted from a
-    ``codec`` and a ``generator`` (``repro_torch.convert``)."""
+    ``codec`` and a ``generator`` (``repro_torch.convert``).
+
+    ``block_draw`` may be called from several threads at once (the
+    dataset executor's host stage): its decoder cache is filled under a
+    lock, and each draw runs under its own ``torch.no_grad``."""
+
+    #: draws run block by block on the device: the dataset manifest pins
+    #: the block size and the device class
+    engine_batched = True
+
+    #: feature-stream marker recorded in a dataset manifest: the port's
+    #: matmul and batch-norm sums agree with the JAX package's only to a
+    #: tolerance, so a featured dataset never resumes across packages
+    stream_marker = "torch-gan-v1"
 
     def __init__(self, schema: TableSchema, cfg: Optional[GANConfig] = None,
                  n_modes: int = 5, device="cuda", *,
@@ -208,6 +222,7 @@ class GANFeatureGenerator:
         self.discriminator: Optional[MLP] = None
         self._losses: List[Tuple[float, float]] = []
         self._decoders: Dict[int, BatchedDecoder] = {}
+        self._decoders_lock = threading.Lock()
 
     def _activate(self, raw: torch.Tensor) -> torch.Tensor:
         """tanh on each α column, softmax over each mode / category
@@ -301,9 +316,10 @@ class GANFeatureGenerator:
         activation, Gumbel-max decode with ``kd`` (``kg`` is the dropout
         key, unused at inference)."""
         b = int(batch)
-        if b not in self._decoders:
-            self._decoders[b] = self.codec.batched(b, self.device)
-        decoder = self._decoders[b]
+        with self._decoders_lock:
+            if b not in self._decoders:
+                self._decoders[b] = self.codec.batched(b, self.device)
+            decoder = self._decoders[b]
 
         @torch.no_grad()
         def _draw(key: torch.Tensor):

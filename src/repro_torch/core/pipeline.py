@@ -6,6 +6,7 @@ generator, feature generator, aligner — behind one fit/generate API::
     pipe = SyntheticGraphPipeline(noise=0.03, gan_steps=200)  # on "cuda"
     pipe.fit(graph, cont, cat)
     g_syn, cont_syn, cat_syn = pipe.generate(seed=0, scale_nodes=2)
+    ds = pipe.generate_streamed("/data/ds", seed=0, scale_nodes=64)
 
 or generates from a saved fit (``repro_torch.convert``, whose
 ``state_from_pipeline`` saves one)::
@@ -45,6 +46,13 @@ class PipelineTimings:
     gen_struct_s: float = 0.0
     gen_feat_s: float = 0.0
     gen_align_s: float = 0.0
+    # streamed generation only: writer-stage busy time, end-to-end wall
+    # time, busy/wall overlap factor (>1 ⇒ stages ran concurrently) and
+    # how long the commit path sat blocked on the host/write stages
+    gen_write_s: float = 0.0
+    gen_wall_s: float = 0.0
+    gen_overlap: float = 0.0
+    gen_stall_s: float = 0.0
 
 
 def _sync(device: torch.device) -> None:
@@ -163,3 +171,75 @@ class SyntheticGraphPipeline:
         _sync(dev)
         self.timings.gen_align_s = time.time() - t0
         return g, cont_s, cat_s
+
+    # -- generate to disk (repro_torch.datastream) -------------------------
+    def generate_streamed(self, out_dir: str, seed: int = 0,
+                          scale_nodes: int = 1,
+                          density_preserving: bool = True,
+                          shard_edges: int = 1 << 20,
+                          k_pref: Optional[int] = None,
+                          include_features: bool = True,
+                          double_buffered: bool = True,
+                          resume: bool = False, mode: str = "chunks",
+                          backend: Optional[str] = None, id_dtype=None,
+                          pipeline_depth: int = 2, host_workers: int = 1,
+                          fused: bool = False, tracer=None, metrics=None):
+        """Materialize the generated graph to a sharded on-disk dataset
+        instead of device memory (see ``repro_torch.datastream``) — the
+        path for outputs that exceed memory.  Returns a
+        ``ShardedGraphDataset``.  Structure is sampled on the pipeline's
+        device.
+
+        ``backend`` picks the edge-sampler backend (None/'auto' = by
+        device: ``cuda_prng`` on a card); the manifest records the stream
+        it reproduces.  ``id_dtype`` overrides the auto int32/int64 node
+        id width.
+
+        Features/alignment ride along per shard when the pipeline is
+        fitted with edge features; node-feature pipelines stream structure
+        only (cross-shard node identity is not streamed).
+
+        ``pipeline_depth``/``host_workers`` configure the staged shard
+        executor: depth 0 is the serial loop, ``>=1`` overlaps struct
+        sampling with the host feature stage (a pool of ``host_workers``
+        threads) and the async writer flush — output is byte-identical
+        either way.  Timings are split per stage *busy* time:
+        ``gen_struct_s`` covers edge sampling only, the per-shard feature
+        draw / alignment land in ``gen_feat_s`` / ``gen_align_s``, writes
+        in ``gen_write_s``; ``gen_wall_s`` is end-to-end and
+        ``gen_overlap`` (busy/wall) reports how much the pipeline hid.
+
+        ``fused=True`` draws each shard's feature rows on the card in its
+        struct stage; the host stage shrinks to alignment + write.  Output
+        stays byte-identical to the staged path.
+
+        ``tracer``/``metrics`` (a ``repro_torch.obs`` ``Tracer`` /
+        ``MetricsRegistry``) flow through the executor into every stage.
+        """
+        from repro_torch.datastream import DatasetJob, FeatureSpec
+
+        if self.struct_kind != "kronecker":
+            raise ValueError("streamed generation needs the kronecker "
+                             f"structure generator, not {self.struct_kind}")
+        fit: KroneckerFit = self.struct.scaled(scale_nodes,
+                                               density_preserving)
+        features = None
+        if include_features and hasattr(self, "features") \
+                and self.feature_kind == "edge":
+            features = FeatureSpec(self.features,
+                                   getattr(self, "aligner", None))
+        job = DatasetJob(fit, out_dir, shard_edges=shard_edges, seed=seed,
+                         k_pref=k_pref, double_buffered=double_buffered,
+                         mode=mode, features=features, backend=backend,
+                         id_dtype=id_dtype, pipeline_depth=pipeline_depth,
+                         host_workers=host_workers, fused=fused,
+                         tracer=tracer, metrics=metrics, device=self.device)
+        job.run(resume=resume)
+        self.timings.gen_struct_s = job.timings["gen_struct_s"]
+        self.timings.gen_feat_s = job.timings["gen_feat_s"]
+        self.timings.gen_align_s = job.timings["gen_align_s"]
+        self.timings.gen_write_s = job.timings["write_s"]
+        self.timings.gen_wall_s = job.timings["wall_s"]
+        self.timings.gen_overlap = job.timings["overlap"]
+        self.timings.gen_stall_s = job.timings["stall_s"]
+        return job.dataset()

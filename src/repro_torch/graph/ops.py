@@ -3,9 +3,15 @@ aligner reads (degrees, PageRank, Katz).
 
 A graph is ``(src, dst, n_src, n_dst)`` with id tensors on one device;
 homogeneous graphs use ``n_src == n_dst``.  ``segment_sum`` of the JAX
-package becomes ``index_add_``, whose float sums on CUDA are taken in no
-fixed order (atomics), so PageRank and Katz agree with the reference to a
-float tolerance, not bit for bit.
+package becomes ``index_add_`` on the CPU.  On CUDA ``index_add_`` adds
+with atomics in no fixed order, so two calls on one graph differed in the
+last bits, and those bits reach the aligner's rank matching; there the
+edges are sorted by destination once per graph (a stable sort) and each
+node's run is summed by ``segment_reduce``.  That sum is the same from
+run to run, but it associates in its own order, so the card agrees with
+the CPU's ``index_add_`` to a float tolerance, not bit for bit.  PageRank
+and Katz agree with the reference to a float tolerance too (XLA sums in
+its own order).
 """
 from __future__ import annotations
 
@@ -66,10 +72,50 @@ def degree_histogram(degrees: torch.Tensor, max_deg: Optional[int] = None
                           minlength=max_deg + 1)
 
 
-def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int
-                 ) -> torch.Tensor:
-    return torch.zeros(n, dtype=vals.dtype,
-                       device=vals.device).index_add_(0, seg, vals)
+def compact_subgraph(src, dst, bipartite: bool, device=None) -> Graph:
+    """Remap a sample's global ids onto a dense local id space (≤ 2E
+    nodes) so per-node structural features stay sample-sized.  ``src``/
+    ``dst`` are tensors (or numpy arrays) of ids; the graph lives on
+    ``device`` (default: the ids' own).  Local ids are int32, the sorted
+    rank of each global id, as numpy's ``unique``/``searchsorted`` give
+    them."""
+    src = torch.as_tensor(src, device=device)
+    dst = torch.as_tensor(dst, device=device)
+    if bipartite:
+        su, si = torch.unique(src, sorted=True, return_inverse=True)
+        du, di = torch.unique(dst, sorted=True, return_inverse=True)
+        return Graph(si.to(torch.int32), di.to(torch.int32), len(su),
+                     len(du), bipartite=True)
+    ids = torch.unique(torch.cat([src, dst]), sorted=True)
+    si = torch.searchsorted(ids, src).to(torch.int32)
+    di = torch.searchsorted(ids, dst).to(torch.int32)
+    return Graph(si, di, len(ids), len(ids), bipartite=False)
+
+
+class _EdgeSum:
+    """``x ↦ Σ_{e: dst[e] = v} x[src[e]]`` for every node ``v < n``, the
+    per-iteration sum of PageRank and Katz.  The CPU takes ``index_add_``
+    in edge order; CUDA sorts the edges by ``dst`` once (stable) and sums
+    each node's run with ``segment_reduce``, so repeated calls are
+    bit-equal (and equal the CPU's sums to a float tolerance)."""
+
+    def __init__(self, src: torch.Tensor, dst: torch.Tensor, n: int):
+        self.n = n
+        if dst.device.type == "cuda":
+            order = torch.sort(dst, stable=True).indices
+            self.src = src[order]
+            self.lengths = torch.bincount(dst, minlength=n)
+            self.dst = None
+        else:
+            self.src, self.dst, self.lengths = src, dst, None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.lengths is not None:
+            return torch.segment_reduce(x[self.src], "sum",
+                                        lengths=self.lengths, unsafe=True)
+        return torch.zeros(self.n, dtype=x.dtype,
+                           device=x.device).index_add_(0, self.dst,
+                                                       x[self.src])
 
 
 def pagerank(g: Graph, n_iter: int = 20, damping: float = 0.85
@@ -87,9 +133,10 @@ def pagerank(g: Graph, n_iter: int = 20, damping: float = 0.85
     deg = torch.bincount(src, minlength=n).to(torch.float32)
     inv = torch.where(deg > 0, 1.0 / torch.clamp_min(deg, 1), 0.0)
     r = torch.full((n,), 1.0 / n, dtype=torch.float32, device=src.device)
+    edge_sum = _EdgeSum(src, dst, n)
     for _ in range(n_iter):
         contrib = r * inv
-        r_new = _segment_sum(contrib[src], dst, n)
+        r_new = edge_sum(contrib)
         dangling = torch.sum(torch.where(deg == 0, r, 0.0))
         r = (1 - damping) / n + damping * (r_new + dangling / n)
     return r
@@ -107,8 +154,9 @@ def katz_centrality(g: Graph, alpha: float = 0.05, n_iter: int = 15
     else:
         n, src, dst = g.n_src, g.src, g.dst
     x = torch.ones(n, dtype=torch.float32, device=src.device)
+    edge_sum = _EdgeSum(src, dst, n)
     for _ in range(n_iter):
-        x = 1.0 + alpha * _segment_sum(x[src], dst, n)
+        x = 1.0 + alpha * edge_sum(x)
     return x
 
 

@@ -40,11 +40,11 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) & MASK) | (x >> (32 - r))
 
 
-def threefry2x32(k0: Word, k1: Word, x0: torch.Tensor, x1: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def threefry2x32(k0: Word, k1: Word, x0: Word, x1: Word
+                 ) -> Tuple[Word, Word]:
     """The 20-round threefry2x32 block cipher on int64 tensors holding
-    uint32 words.  ``k0``/``k1`` are ints or tensors broadcastable to
-    ``x0``/``x1``."""
+    uint32 words, or on Python ints.  ``k0``/``k1`` are ints or tensors
+    broadcastable to ``x0``/``x1``."""
     k2 = k0 ^ k1 ^ _PARITY
     ks = (k0, k1, k2)
     x0 = (x0 + k0) & MASK
@@ -83,9 +83,13 @@ def split(key: torch.Tensor, num: int = 2, device=None) -> torch.Tensor:
 
 
 def fold_in(key: torch.Tensor, data: int, device=None) -> torch.Tensor:
-    """``jax.random.fold_in`` for a non-negative ``data``."""
-    return _counters(key, torch.tensor([int(data) & MASK],
-                                       device=device))[0]
+    """``jax.random.fold_in`` for a non-negative ``data``, computed on
+    Python ints (a few tens of µs, where torch ops took hundreds: the
+    chunked samplers fold one key per chunk) and returned on ``device``
+    (the CPU unless asked)."""
+    k0, k1 = key_words(key)
+    w0, w1 = threefry2x32(k0, k1, 0, int(data) & MASK)
+    return torch.tensor([w0, w1], dtype=torch.int64, device=device)
 
 
 def _to_int32(w: torch.Tensor) -> torch.Tensor:

@@ -33,4 +33,6 @@ def test_scan_sees_the_package():
     assert {"random.py", "rmat_sample.py", "pipeline.py",
             "flash_attention.py", "engine.py", "transformer.py",
             "layers.py", "spike.py", "metrics.py", "fit_engine.py",
-            "reference.py", "chip_smoke.py"} <= names
+            "reference.py", "chip_smoke.py", "scheduler.py", "writer.py",
+            "executor.py", "service.py", "distributed_gen.py", "trace.py",
+            "generate_dataset.py"} <= names
