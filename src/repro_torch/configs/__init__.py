@@ -3,7 +3,7 @@
 ``get_config(name)`` returns the exact published configuration, as the JAX
 package's ``repro.configs.get_config`` does.  The registry lists only the
 families the port runs: the dense LMs.  The others (moe, vlm, hybrid, ssm,
-encdec) wait for their port (ROADMAP A9).
+encdec) wait for their port (ROADMAP A7(b)).
 """
 from __future__ import annotations
 

@@ -13,6 +13,11 @@ or generates from a saved fit (``repro_torch.convert``, whose
 
     pipe = repro_torch.convert.pipeline_from_state(state, device="cuda")
 
+or refits from a dataset on disk, one pass over its shards
+(``repro_torch.core.fit_engine``)::
+
+    pipe = SyntheticGraphPipeline(noise=0.03).fit_streamed("/data/ds")
+
 The port fits the paper's default components: kronecker structure, GAN
 features and the GBDT (``"xgboost"``) or random aligner.  A fit gives the
 JAX package's structure and VGMs exactly and its GAN and forests to the
@@ -35,7 +40,7 @@ from repro_torch.core.descend import default_id_dtype
 from repro_torch.core.features import GANFeatureGenerator
 from repro_torch.core.structure import KroneckerFit, fit_structure
 from repro_torch.graph.ops import Graph
-from repro_torch.tabular.schema import infer_schema
+from repro_torch.tabular.schema import TableSchema, infer_schema
 
 
 @dataclasses.dataclass
@@ -102,7 +107,7 @@ class SyntheticGraphPipeline:
             raise NotImplementedError(
                 f"struct={self.struct_kind!r}, features={self.feat_kind!r}: "
                 "the port fits kronecker structure and GAN features; the "
-                "SBM/ER and KDE/random generators are ROADMAP A3")
+                "SBM/ER and KDE/random generators are ROADMAP A4")
         dev = self.device
         g = Graph(g.src.to(dev), g.dst.to(dev), g.n_src, g.n_dst,
                   g.bipartite)
@@ -128,6 +133,101 @@ class SyntheticGraphPipeline:
         _sync(dev)
         self.timings.fit_align_s = time.time() - t0
         self.bipartite = g.bipartite
+        return self
+
+    def fit_streamed(self, source, sample_rows: int = 100_000,
+                     chunk_rows: int = 1 << 20, kmax: int = 2048,
+                     seed: int = 0, calibrate: bool = True,
+                     stratified: bool = False, tracer=None
+                     ) -> "SyntheticGraphPipeline":
+        """Fit every component from a chunked ``(src, dst, cont, cat)``
+        stream — a ``repro_torch.datastream`` dataset directory, a
+        ``ShardedGraphDataset``, a ``FitSource``, or a ``Graph`` (with its
+        table as ``(g, cont, cat)``) — without holding the graph or the
+        table in memory.  A dataset written by :meth:`generate_streamed`
+        refits from its manifest.  ``source`` may also be the
+        ``fit_engine.StreamFitStats`` of an ``accumulate`` pass already
+        made: the fit then reads its sketches and sample as they are, and
+        ``sample_rows``, ``chunk_rows``, ``kmax``, ``seed`` and
+        ``stratified`` go unused.
+
+        Structure: one pass of ``fit_engine.accumulate`` on the pipeline's
+        device (bit-pair MLE, degree sketches, the priority sample), then
+        the MLE → Eq. 6 → calibration ladder of ``fit_structure``.
+        Features and aligner: the VGM/GAN/GBDT fits on the order-invariant
+        ``sample_rows``-row sample (``stratified=True`` caps each chunk's
+        share); the aligner trains on the sample's id-compacted subgraph.
+        Memory is bounded by ``chunk_rows`` plus the sample.
+
+        Provenance (θ candidates, sketch digests, sample identity) lands
+        in ``self.fit_provenance``: ``fit_engine.fit_to_json(pipe.struct,
+        pipe.fit_provenance)`` is the JAX package's bytes and the same
+        across chunk orderings.  Stage times land in ``self.timings``,
+        each taken after a device synchronize."""
+        from repro_torch.core import fit_engine
+        from repro_torch.datastream.fitsource import as_fit_source
+        from repro_torch.graph.ops import compact_subgraph
+        from repro_torch.obs.trace import NULL_TRACER
+
+        if self.struct_kind != "kronecker":
+            raise ValueError("streamed fitting supports the kronecker "
+                             f"structure generator, not {self.struct_kind}")
+        if self.feat_kind != "gan":
+            raise NotImplementedError(
+                f"features={self.feat_kind!r}: the port fits GAN features; "
+                "the KDE/random generators are ROADMAP A4")
+        tracer = tracer if tracer is not None else NULL_TRACER
+        dev = self.device
+        t0 = time.time()
+        with tracer.span("fit.struct"):
+            if isinstance(source, fit_engine.StreamFitStats):
+                stats = source
+            else:
+                stats = fit_engine.accumulate(
+                    as_fit_source(source, chunk_rows=chunk_rows),
+                    sample_rows=sample_rows, seed=seed, kmax=kmax,
+                    stratified=stratified, tracer=tracer, device=dev)
+            self.struct, self.fit_provenance = \
+                fit_engine.fit_structure_streamed(
+                    stats, noise=self.noise, calibrate=calibrate,
+                    device=dev)
+        _sync(dev)
+        self.timings.fit_struct_s = time.time() - t0
+
+        sample = stats.sample
+        n_rows = max(len(sample["rows"]), 1)
+        cont_s = (sample["cont"] if sample["cont"] is not None
+                  else np.zeros((n_rows, 0), np.float32))
+        cat_s = (sample["cat"] if sample["cat"] is not None
+                 else np.zeros((n_rows, 0), np.int32))
+        # exact cardinalities from the full pass, not the sample — a
+        # rare category missing from the sample must still be decodable
+        self.schema = TableSchema(n_cont=stats.n_cont,
+                                  cat_cards=stats.cat_cards)
+
+        t0 = time.time()
+        with tracer.span("fit.features"):
+            # zero-width tables carry nothing to learn: skip the GAN steps
+            steps = self.gan_steps if (stats.n_cont + len(stats.cat_cards)) \
+                else 0
+            self.features = GANFeatureGenerator(self.schema, device=dev).fit(
+                cont_s, cat_s, steps=steps)
+            _sync(dev)
+        self.timings.fit_feat_s = time.time() - t0
+
+        t0 = time.time()
+        with tracer.span("fit.align"):
+            g_local = compact_subgraph(sample["src"], sample["dst"],
+                                       stats.bipartite, device=dev)
+            al_cls = ALIGNERS[self.aligner_kind]
+            self.aligner = al_cls(self.schema, kind=self.feature_kind) \
+                if self.aligner_kind == "random" else \
+                al_cls(self.schema, self.aligner_cfg,
+                       kind=self.feature_kind)
+            self.aligner.fit(g_local, cont_s, cat_s)
+            _sync(dev)
+        self.timings.fit_align_s = time.time() - t0
+        self.bipartite = stats.bipartite
         return self
 
     def generate(self, seed: int = 0, scale_nodes: int = 1,

@@ -17,6 +17,16 @@ split into focused layers:
 * ``writer``    — sharded on-disk store, journaled progress, async flush
 * ``reader``    — manifest-driven mmap-ed access + streamed deep verify
 * ``service``   — ``DatasetJob``: the resumable plan→run→verify facade
+* ``fitsource`` — ``FitSource``: a dataset (or in-memory arrays) read
+  back as chunks for the streaming fit (``repro_torch.core.fit_engine``,
+  ``SyntheticGraphPipeline.fit_streamed``), closing fit → generate →
+  refit
+
+Where each part runs: the struct stage samples on the card (K2, the
+in-register R-MAT kernel); the feature draw and alignment run on the card
+in the executor's host threads; the writer, the manifest and the reader
+are host code.  A refit reads shards on the host and moves each chunk's
+ids to the card once.
 
     from repro_torch.datastream import DatasetJob, ShardedGraphDataset
 
@@ -28,6 +38,9 @@ split into focused layers:
         train_step(block.src, block.dst, block.cont)
 """
 from repro_torch.datastream.executor import ExecutorStats, ShardExecutor
+from repro_torch.datastream.fitsource import (ArrayFitSource,
+                                              DatasetFitSource, FitSource,
+                                              as_fit_source)
 from repro_torch.datastream.reader import ShardBlock, ShardedGraphDataset
 from repro_torch.datastream.scheduler import (ChunkScheduler, ShardPlan,
                                               auto_k_pref)
@@ -50,4 +63,5 @@ __all__ = [
     "ShardSource", "ChunkShardSource", "DeviceStepShardSource",
     "ShardExecutor", "ExecutorStats",
     "DatasetJob", "FeatureSpec",
+    "FitSource", "ArrayFitSource", "DatasetFitSource", "as_fit_source",
 ]

@@ -16,8 +16,9 @@ its own order).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -70,6 +71,23 @@ def degree_histogram(degrees: torch.Tensor, max_deg: Optional[int] = None
     _check_dense_degrees(max_deg + 1, "degree_histogram")
     return torch.bincount(torch.clamp(degrees, 0, max_deg),
                           minlength=max_deg + 1)
+
+
+def sparse_degree_histogram(ids, n_nodes: int, kmax: int
+                            ) -> Tuple[np.ndarray, int]:
+    """``(histogram, max_degree)`` of the degree sequence behind ``ids``
+    without a dense per-node array: unique-count on the ids' device is
+    O(E log E) in the edge count and independent of ``n_nodes``, so it
+    works at id spaces where ``in_degrees``/``out_degrees`` would refuse.
+    Degrees above ``kmax`` are clipped into the last bin (the
+    ``degree_histogram`` convention); zero-degree nodes land in bin 0.
+    The histogram is an int64 numpy array of ``kmax + 1`` bins."""
+    ids = ids if isinstance(ids, torch.Tensor) else torch.tensor(ids)
+    _, cnt = torch.unique(ids, return_counts=True)
+    hist = torch.bincount(torch.clamp(cnt, max=kmax), minlength=kmax + 1)
+    hist = hist.cpu().numpy().astype(np.int64)
+    hist[0] += int(n_nodes) - len(cnt)
+    return hist, int(cnt.max()) if len(cnt) else 0
 
 
 def compact_subgraph(src, dst, bipartite: bool, device=None) -> Graph:

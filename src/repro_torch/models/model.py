@@ -11,7 +11,7 @@ scoring and serving:
 * ``cache_abstract(batch, seq)`` / ``init_cache(batch, seq)``.
 
 Everything runs on ``device`` (``"cuda"`` unless the caller asks for the
-CPU).  Other families raise ``NotImplementedError`` (ROADMAP A9).
+CPU).  Other families raise ``NotImplementedError`` (ROADMAP A7(b)).
 """
 from __future__ import annotations
 

@@ -52,7 +52,7 @@ def _require_dense(cfg) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: the port runs the "
             "dense LMs; moe, vlm, hybrid, ssm and encdec are queued in "
-            "ROADMAP A9")
+            "ROADMAP A7(b)")
 
 
 def stack_defs(cfg) -> Dict[str, Any]:

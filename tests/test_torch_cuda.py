@@ -12,7 +12,9 @@ outputs of magnitude ~1); on early causal rows with V scaled by 8 the
 tensor-core route is held to one bf16 step where |out| ≥ 4.  A fit on
 the card gives the CPU's bit-pair counts, structure and VGMs exactly;
 its GAN weights after 10 steps within 1e-5 of the CPU's (cuBLAS sums in
-another order) and its holdout qualities within 0.02."""
+another order) and its holdout qualities within 0.02.  The streaming
+fit's accumulators on the card equal the CPU's exactly (the reservoir's
+int64 hash is numpy's uint64 ``_mix64``), and so does its fit JSON."""
 import numpy as np
 import pytest
 import torch
@@ -567,3 +569,72 @@ def test_node_features_are_bit_reproducible_on_card(cuda):
     c = gops.node_features(gops.Graph(src, dst, 5000, 3000, True))
     torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-5,
                                equal_nan=True)
+
+
+def test_reservoir_hash_on_card_is_uint64_mix64(cuda):
+    """The reservoir's priorities on the card: splitmix64 in int64 equals
+    numpy's uint64 ``_mix64`` on every bit pattern, ids ≥ 2^63 included,
+    and the bit-63-flipped priorities sort in their uint64 order."""
+    from repro_torch.core import fit_engine as fe
+    rng = np.random.default_rng(0)
+    u = rng.integers(0, 1 << 64, 1 << 20, dtype=np.uint64)
+    u[:4] = [0, (1 << 63) - 1, 1 << 63, (1 << 64) - 1]
+    want = fe._mix64(u)
+    got = fe._mix64_t(torch.from_numpy(u.view(np.int64)).to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint64), want)
+    order = torch.sort(got ^ fe._signed(fe._SIGN), stable=True).indices
+    np.testing.assert_array_equal(want[order.cpu().numpy()], np.sort(want))
+
+
+@pytest.mark.parametrize("stratified", [False, True])
+def test_fit_accumulators_on_card_equal_cpu(cuda, stratified):
+    """The dense degree sketch, the bit-pair counts and the reservoir's
+    rows and columns equal the CPU's, chunk for chunk."""
+    from repro_torch.core import fit_engine as fe
+    rng = np.random.default_rng(1)
+    n, n_nodes = 600_000, 1 << 16
+    src = rng.integers(0, n_nodes, n).astype(np.int32)
+    dst = (rng.random(n) ** 3 * n_nodes).astype(np.int32)
+    cont = rng.normal(size=(n, 2)).astype(np.float32)
+    cat = rng.integers(0, 5, size=(n, 1)).astype(np.int32)
+    sizes, out = [200_000, 1, 199_999, 200_000], []
+    for dev in (cuda, torch.device("cpu")):
+        sk = fe.DegreeSketch(n_nodes, 512, device=dev)
+        mle = fe.BitPairMLE(16, 16, block=100_000)
+        res = fe.ReservoirSample(20_000, seed=3, stratified=stratified,
+                                 total_rows=n, device=dev)
+        off = 0
+        for s in sizes:
+            sl = slice(off, off + s)
+            d = torch.from_numpy(dst[sl]).to(dev)
+            sk.update(d)
+            mle.update(torch.from_numpy(src[sl]).to(dev), d)
+            res.update(fe.FitChunk(src[sl], d, cont[sl], cat[sl], off))
+            off += s
+        out.append((sk.finalize(), mle.counts, res.finalize()))
+    ((h_a, m_a), c_a, r_a), ((h_b, m_b), c_b, r_b) = out
+    np.testing.assert_array_equal(h_a, h_b)
+    assert m_a == m_b
+    np.testing.assert_array_equal(c_a, c_b)
+    for k in ("rows", "src", "dst", "cont", "cat"):
+        np.testing.assert_array_equal(r_a[k], r_b[k], err_msg=k)
+    assert r_a["provenance"] == r_b["provenance"]
+
+
+def test_fit_json_on_card_equals_cpu(cuda, tmp_path):
+    """``accumulate`` + ``fit_structure_streamed`` on the card give the
+    CPU's fit JSON byte for byte (dense sketches at 2^16 nodes, the
+    calibration samples on the ``reference`` stream)."""
+    from repro_torch.core import fit_engine as fe
+    from repro_torch.core.structure import KroneckerFit
+    from repro_torch.datastream import DatasetFitSource, DatasetJob
+    path = str(tmp_path / "ds")
+    DatasetJob(KroneckerFit(*TH, n=16, m=15, E=2_000_000), path,
+               shard_edges=1 << 19, seed=1).run()
+    texts = []
+    for dev in ("cuda", "cpu"):
+        stats = fe.accumulate(DatasetFitSource(path, chunk_rows=300_000),
+                              sample_rows=10_000, device=dev)
+        texts.append(fe.fit_to_json(*fe.fit_structure_streamed(
+            stats, noise=0.03, device=dev)))
+    assert texts[0] == texts[1]

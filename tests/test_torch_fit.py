@@ -421,7 +421,7 @@ def test_whole_fit_state_matches_reference(fitted):
                                 dict(features="random")])
 def test_fit_of_unported_components_raises(table, kw):
     _, (tg, cont, cat) = table
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A4"):
         SyntheticGraphPipeline(device="cpu", **kw).fit(tg, cont, cat)
 
 

@@ -35,4 +35,4 @@ def test_scan_sees_the_package():
             "layers.py", "spike.py", "metrics.py", "fit_engine.py",
             "reference.py", "chip_smoke.py", "scheduler.py", "writer.py",
             "executor.py", "service.py", "distributed_gen.py", "trace.py",
-            "generate_dataset.py"} <= names
+            "generate_dataset.py", "fitsource.py", "fit_dataset.py"} <= names
