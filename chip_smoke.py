@@ -6,8 +6,9 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per library, all at once) and drives the port's paths on the card:
 graph generation (phases 2-7), fitting (phase 4b), writing datasets to
-disk (phase 13), the dense LM's scoring forward and serving engine
-(phases 8-10) and the toolchain probes S1-S4 (phase 12):
+disk (phase 13), scoring what it generates (phase 14), the dense LM's
+scoring forward and serving engine (phases 8-10) and the toolchain probes
+S1-S4 (phase 12):
 
 1. build the kernels; print the card's name and power limit; read the
    built SASS: the in-register R-MAT kernel's level loop, and the
@@ -119,10 +120,41 @@ disk (phase 13), the dense LM's scoring forward and serving engine
     dataset at the asset's settings on 40 000 sample rows (its
     cardinalities the dataset's, GAN losses finite, its draw within the
     ``REAL_*`` bounds of the sample), then ``generate(seed=0,
-    scale_nodes=4, chunked=True)`` from it: K2 must launch (counter
+    scale_nodes=1, chunked=True)`` from it: K2 must launch (counter
     reset first) and equal the plain stream on every chunk, folded into
     K2's row as ``refit_path_launches``/``refit_path_max_abs_err``.
     It works in a temporary directory that it removes.
+14. fidelity (run inside and right after phase 4): (a) Table 2's four
+    scores of phase 4's own x64 output against ``tabformer_like()``, each
+    timed alone, then ``evaluate_all``, equal to them; finite and in
+    range; (b) every statistic of ``graph.ops`` on that x64 graph on the
+    card (hop plot and effective diameter at 32 sources, 16 hops, seed 0;
+    the deduplicated undirected edges and the triangle candidates
+    checked), each timed, with the peak device memory; the graph is
+    bipartite, so its triangle count must be 0; (c) the asset at
+    ``scale_nodes=4`` (640 000 edges): ``evaluate_all`` and every
+    statistic on the card equal to the CPU's on the same tensors
+    (integers, the hop plot and the effective diameter exactly, floats
+    within ``FID_REL``); (d) Table 10: ``cora_like(n=2048,
+    n_edges=8000)``, its ``fit_structure`` at noise 0.0 and 0.05 and the
+    R-MAT default, each sampled through K2 (``sample_graph(PRNGKey(0))``,
+    held against the plain stream), statistics card = CPU; the noise-0.05
+    fit at ``scale_nodes=64`` (2^17 nodes, 17 506 304 edges), timed, with
+    triangles; there the triangle count and the hop plot, the statistics
+    that run in batches, are run again on the card in batches of
+    ``FID_SMALL_BATCH`` and must be equal, and the wedges and the largest
+    component must equal the CPU's on the same tensors; (e) GCN and GAT
+    epochs (Table 4) on ``paysim_like(n=2048, n_edges=8000)`` and its
+    Kronecker fit sampled through K2 at scales 1 and 16 (Table 4's
+    relative timing for the scale-1 fit only, the graph of the original's
+    size), and a 50-epoch GCN on ``cora_like()`` by
+    ``train_node_classifier`` on the card and on the CPU, both from
+    ``init_gnn(PRNGKey(0))`` (its weights on the two within
+    ``GNN_INIT_TOL``): final losses within ``GNN_LOSS_TOL``, test
+    accuracies within ``GNN_ACC_TOL``.  K2's launches on (c)-(e) (counter
+    reset before each sampling call) and its error against the plain
+    stream are K2's ``fidelity_path_*`` fields; the phase's wall is logged
+    beside its ``FID_BUDGET_S``.
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
 ``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
@@ -246,6 +278,9 @@ def cuda_ms(fn, reps: int) -> float:
 #: are not read it kept every event of the loop
 PROFILER_PAD = 8
 SPIN_CYCLES = 20_000
+#: the card's machine's profiler has kept no kernel event of a whole
+#: 200-call trace: such a trace is taken again, this many times in all
+PROFILER_TRIES = 3
 #: rounds of (kernel, library) loops per probe; each takes its least: the
 #: host's time per call varies by a fifth from loop to loop
 PROBE_ROUNDS = 5
@@ -258,7 +293,8 @@ def device_us(fn, reps: int) -> tuple:
     ``PROFILER_PAD`` spin kernels on each side), their durations summed
     over the loop and divided by ``reps``.  The time is None unless every
     kernel kept a whole multiple of ``reps`` events, that is unless every
-    call was seen."""
+    call was seen.  A trace that kept no kernel event is taken again, up
+    to ``PROFILER_TRIES`` traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -270,16 +306,21 @@ def device_us(fn, reps: int) -> tuple:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pad()
-        for _ in range(reps):
-            fn()
-        pad()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pad()
+            for _ in range(reps):
+                fn()
+            pad()
+        by_name = {}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and "spin_kernel" not in e.name):
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        if by_name:
+            break
     kept = sum(map(len, by_name.values()))
     whole = by_name and all(len(d) % reps == 0 for d in by_name.values())
     per_call = (sum(map(sum, by_name.values())) / reps if whole else None)
@@ -510,9 +551,9 @@ def k2_vs_plain(g, st, launches: int, label: str, every: bool, tr, rmat,
 
 def phase_main_path(convert, tr, rmat, sampler, ref, rs, gops, torch):
     """``generate(scale_nodes=64, chunked=True)`` of the committed fit on
-    the auto backend.  Returns K2's launches in it, K2's max error at the
-    shapes it gave K2, the largest chunk's kernel arguments and the
-    pipeline."""
+    the auto backend, then phase 14 (a)-(b) on its output.  Returns K2's
+    launches in it, K2's max error at the shapes it gave K2, the largest
+    chunk's kernel arguments, the pipeline and phase 14's numbers."""
     state = convert.load_state(ASSET)
     pipe = convert.pipeline_from_state(state, device="cuda")
     st = pipe.struct.scaled(64)
@@ -555,9 +596,334 @@ def phase_main_path(convert, tr, rmat, sampler, ref, rs, gops, torch):
                                "path", False, tr, rmat, sampler, ref, rs,
                                torch)
     check(err == 0, f"K2 disagrees at the main path's shapes (max {err})")
+    fidelity = phase_fidelity_x64(g, cont, cat, torch)
     del g, cont, cat
     torch.cuda.empty_cache()
-    return launches["rmat_sample_prng"], err, largest, pipe
+    return launches["rmat_sample_prng"], err, largest, pipe, fidelity
+
+
+#: phase 14: card against CPU on the same tensors, float results within
+#: this relative error (or ``FID_ABS`` absolute near 0); integers, the hop
+#: plot and the effective diameter exactly
+FID_REL, FID_ABS = 1e-9, 1e-12
+#: phase 14's wall budget in seconds (the reused x64 generate not counted)
+FID_BUDGET_S = 60.0
+#: phase 14(e): a GCN trained 50 epochs on the card and on the CPU from the
+#: same weights; final losses within this, test accuracies within 0.01
+GNN_LOSS_TOL, GNN_ACC_TOL = 1e-4, 0.01
+#: ``init_gnn``'s weights on the card against the CPU's: the port's
+#: threefry normals are within 1e-6 of ``jax.random.normal`` on either
+GNN_INIT_TOL = 1e-6
+#: phase 14 (d) reruns the x64 fit's batched statistics in batches of this
+#: many candidates (``EXPAND_BATCH`` is 2^27): 189 batches of its triangles
+FID_SMALL_BATCH = 1 << 22
+
+
+def _timed(fn, torch):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def graph_stats(g, torch) -> tuple:
+    """Every statistic of ``repro_torch.graph.ops`` on ``g``'s device,
+    with Table 10's degree sequence (out + in; out and in side by side
+    for a bipartite graph): values and the seconds of each."""
+    import numpy as np
+    from repro_torch.graph import ops as gops
+    if g.bipartite:
+        deg = torch.cat([gops.out_degrees(g), gops.in_degrees(g)])
+    else:
+        deg = gops.out_degrees(g) + gops.in_degrees(g)
+    steps = (
+        ("undirected_edges", lambda: int(gops._to_undirected(g)[0].numel())),
+        ("max_degree", lambda: int(deg.max())),
+        ("triangles", lambda: gops.triangle_stats(g)),
+        ("wedges", lambda: gops.wedge_count(g)),
+        ("clustering", lambda: gops.global_clustering(g)),
+        ("assortativity", lambda: gops.degree_assortativity(g)),
+        ("powerlaw", lambda: gops.powerlaw_exponent(deg[deg > 0])),
+        ("gini", lambda: gops.gini_coefficient(deg)),
+        ("entropy", lambda: gops.rel_edge_distribution_entropy(g)),
+        ("lcc", lambda: gops.largest_connected_component(g)),
+        ("hop_plot", lambda: gops.hop_plot(g).tolist()))
+    vals, secs = {}, {}
+    for name, fn in steps:
+        vals[name], secs[name] = _timed(fn, torch)
+    vals["triangles"], vals["triangle_candidates"] = vals["triangles"]
+    vals["effective_diameter"] = gops.effective_diameter(
+        np.asarray(vals["hop_plot"]))
+    return vals, secs
+
+
+def same_results(label: str, got: dict, want: dict) -> None:
+    """``got`` (the card's) against ``want`` (the CPU's, or another call's
+    on the card): ``None``, integers and lists exactly, floats within
+    ``FID_REL``/``FID_ABS``."""
+    import math
+    bad = []
+    for k, w in want.items():
+        x = got[k]
+        if isinstance(w, float) and isinstance(x, float):
+            ok = (math.isnan(w) and math.isnan(x)) or math.isclose(
+                x, w, rel_tol=FID_REL, abs_tol=FID_ABS)
+        else:
+            ok = x == w and type(x) is type(w)
+        if not ok:
+            bad.append(f"{k}: card {x!r} CPU {w!r}")
+    log(f"{label}: {len(want) - len(bad)} of {len(want)} equal"
+        + (f"; differ: {bad}" if bad else ""))
+    check(not bad, f"{label}: results differ")
+
+
+def phase_fidelity_x64(g, cont, cat, torch) -> dict:
+    """Phase 14 (a)-(b) on the main path's own output (``generate(
+    scale_nodes=64)`` of the committed fit).  (a) Table 2's scores against
+    ``tabformer_like()``: each score alone, timed, then ``evaluate_all``,
+    which must give the same numbers; all finite, ``degree_dist`` and
+    ``feature_corr`` in [0, 1], ``dcc`` and ``degree_feat_dist`` ≥ 0.
+    (b) Every graph statistic of that graph on the card with its seconds,
+    the peak device memory over them."""
+    import math
+    from repro_torch.core import metrics
+    from repro_torch.data.reference import tabformer_like
+    t_phase = time.time()
+    g_r, c_r, k_r = tabformer_like()
+    g_rc = metrics._on(g_r, "cuda")
+    scores, secs = {}, {}
+    for name, fn in (
+            ("degree_dist", lambda: metrics.degree_dist_similarity(g_rc, g)),
+            ("dcc", lambda: metrics.dcc(g_rc, g)),
+            ("feature_corr", lambda: metrics.feature_correlation_score(
+                c_r, k_r, cont, cat)),
+            ("degree_feat_dist", lambda: metrics.degree_feature_distance(
+                g_rc, c_r[:, 0], g, cont[:, 0]))):
+        scores[name], secs[name] = _timed(fn, torch)
+    every, secs["evaluate_all"] = _timed(
+        lambda: metrics.evaluate_all(g_r, c_r, k_r, g, cont, cat), torch)
+    log(f"fidelity (a): Table 2 'ours' at x64 ({g.n_edges} edges) against "
+        f"tabformer_like(): {json.dumps(scores)}; seconds "
+        f"{json.dumps({k: round(v, 4) for k, v in secs.items()})}")
+    same_results("fidelity (a) evaluate_all against the scores alone",
+                 every, scores)
+    check(all(math.isfinite(v) for v in scores.values()),
+          f"non-finite score in {scores}")
+    check(0 <= scores["degree_dist"] <= 1 and 0 <= scores["feature_corr"]
+          <= 1 and scores["dcc"] >= 0 and scores["degree_feat_dist"] >= 0,
+          f"a score out of its range: {scores}")
+    t_a = time.time() - t_phase
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    stats, stat_secs = graph_stats(g, torch)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"fidelity (b): the x64 graph's statistics on the card: "
+        f"{json.dumps(stats)}; seconds "
+        f"{json.dumps({k: round(v, 4) for k, v in stat_secs.items()})}; "
+        f"peak device memory {peak:.2f} GB")
+    check(all(math.isfinite(v) for v in stats["hop_plot"])
+          and stats["lcc"] <= g.n_nodes, "x64 statistics out of range")
+    check(g.bipartite and stats["triangles"] == 0,
+          f"the bipartite x64 graph has {stats['triangles']} triangles")
+    return dict(scores=scores, score_s=secs, stats=stats, stat_s=stat_secs,
+                peak_mem_GB=peak, a_s=t_a, b_s=time.time() - t0)
+
+
+def _sample_k2(fit, label: str, tr, rmat, sampler, ref, rs, torch):
+    """``rmat.sample_graph(PRNGKey(0), fit)`` on the card's auto backend,
+    its K2 launches counted (reset first), then K2's ids against the plain
+    stream.  Returns the graph, its launches, the max error, seconds."""
+    from repro_torch.graph.ops import Graph
+    key = tr.PRNGKey(0)
+    rs.reset_launches()
+    (src, dst), secs = _timed(lambda: rmat.sample_graph(
+        key, fit, backend="auto", device="cuda"), torch)
+    launches = rs.LAUNCHES["rmat_sample_prng"]
+    check(launches == 1, f"{label}: {launches} K2 launches, not 1")
+    th = sampler._thetas_on(rmat.derive_thetas(fit, key=key), "cuda")
+    pad = sampler._pad_edges(fit.E, sampler.choose_block(fit.E))
+    want = ref.rmat_prng_ref(key, th, fit.n, fit.m, fit.E, pad)
+    err = max(int((src.to(torch.int64) - want[0].lo).abs().max()),
+              int((dst.to(torch.int64) - want[1].lo).abs().max()))
+    check(err == 0, f"{label}: K2 disagrees with the plain stream ({err})")
+    return Graph(src, dst, 2 ** fit.n, 2 ** fit.m), launches, err, secs
+
+
+def gnn_epoch_s(g, kind: str, tr, torch, epochs: int = 3) -> tuple:
+    """``benchmarks/gnn_throughput.py``'s epoch: hidden 128, 16-d features
+    and labels from numpy, every node in the loss; one untimed epoch, then
+    the mean of ``epochs``.  Returns seconds an epoch and the last loss."""
+    import numpy as np
+    from repro_torch.models import gnn
+    cfg = gnn.GNNConfig(kind=kind)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (g.n_nodes, 16)).astype(np.float32)).cuda()
+    y = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.n_classes, g.n_nodes)).cuda()
+    mask = torch.ones(g.n_nodes, device="cuda")
+    step, _ = gnn.make_node_classifier(cfg, g, "cuda")
+    model = gnn.init_gnn(tr.PRNGKey(0), cfg, 16, "cuda")
+    opt = [torch.zeros_like(p) for p in model.parameters()]
+    step(model, opt, x, y, mask)
+    loss, secs = _timed(lambda: [step(model, opt, x, y, mask)
+                                 for _ in range(epochs)][-1], torch)
+    return secs / epochs, float(loss)
+
+
+def phase_fidelity(asset_pipe, tr, rmat, sampler, ref, rs, torch) -> dict:
+    """Phase 14 (c)-(e).  (c) The asset at ``scale_nodes=4`` generated on
+    the card (K2 against the plain stream on every chunk): ``evaluate_all``
+    against ``tabformer_like()`` and every graph statistic on the card and
+    on the CPU from the same tensors, equal (``same_results``).  (d) Table
+    10: ``cora_like(n=2048, n_edges=8000)``, its ``fit_structure`` at
+    noise 0.0 and 0.05 and the R-MAT default fit (as in
+    ``benchmarks/table10_structural_stats.py``), each sampled by
+    ``sample_graph(PRNGKey(0))`` through K2; statistics card = CPU; then
+    the noise-0.05 fit at ``scale_nodes=64``, timed.  (e) GCN and GAT
+    epochs (Table 4) on ``paysim_like(n=2048, n_edges=8000)`` and on its
+    Kronecker fit sampled through K2 at scale 1 (the benchmark's) and at
+    ``scale_nodes=16``; a 50-epoch GCN
+    on ``cora_like()`` on the card and on the CPU from the same weights.
+    Returns the numbers, K2's launches on this path and its max error."""
+    import math
+    from repro_torch.core import metrics
+    from repro_torch.core.structure import KroneckerFit, fit_structure
+    from repro_torch.data.reference import (cora_like, paysim_like,
+                                            tabformer_like)
+    from repro_torch.graph import ops as gops
+    from repro_torch.models import gnn
+    out, launches, err = {}, 0, 0
+
+    # (c) card against CPU on the asset's x4 output
+    t_phase = time.time()
+    rs.reset_launches()
+    (g4, c4, k4), gen_s = _timed(lambda: asset_pipe.generate(
+        seed=0, scale_nodes=4, chunked=True), torch)
+    n4 = rs.LAUNCHES["rmat_sample_prng"]
+    e4, _ = k2_vs_plain(g4, asset_pipe.struct.scaled(4), n4, "fidelity (c)",
+                        True, tr, rmat, sampler, ref, rs, torch)
+    launches, err = launches + n4, max(err, e4)
+    g_r, c_r, k_r = tabformer_like()
+    card = metrics.evaluate_all(g_r, c_r, k_r, g4, c4, k4)
+    cpu = metrics.evaluate_all(g_r, c_r, k_r, metrics._on(g4, "cpu"), c4.cpu(),
+                               k4.cpu(), device="cpu")
+    log(f"fidelity (c): x4 ({g4.n_edges} edges, generated in {gen_s:.3f}s) "
+        f"Table 2 scores on the card {json.dumps(card)}")
+    same_results("fidelity (c) evaluate_all x4", card, cpu)
+    card_stats, _ = graph_stats(g4, torch)
+    same_results("fidelity (c) statistics x4", card_stats,
+                 graph_stats(metrics._on(g4, "cpu"), torch)[0])
+    out["x4"] = dict(scores=card, stats=card_stats)
+    del g4, c4, k4
+    walls = {"c": time.time() - t_phase}
+
+    # (d) Table 10 on the card
+    t_phase = time.time()
+    g_cora = metrics._on(cora_like(n=2048, n_edges=8000)[0], "cuda")
+    fits = {"ours_no_noise": fit_structure(g_cora, noise=0.0),
+            "ours_noise": fit_structure(g_cora, noise=0.05)}
+    n = fits["ours_noise"].n
+    fits["rmat_default"] = KroneckerFit(a=0.57, b=0.19, c=0.19, d=0.05, n=n,
+                                        m=n, E=g_cora.n_edges)
+    graphs = {"original": g_cora}
+    for name, fit in fits.items():
+        graphs[name], k, e, _ = _sample_k2(fit, f"fidelity (d) {name}", tr,
+                                           rmat, sampler, ref, rs, torch)
+        launches, err = launches + k, max(err, e)
+    rows = {}
+    for name, gg in graphs.items():
+        rows[name], _ = graph_stats(gg, torch)
+        same_results(f"fidelity (d) table10/{name}", rows[name],
+                     graph_stats(metrics._on(gg, "cpu"), torch)[0])
+        log(f"fidelity (d) table10/{name} (n={gg.n_nodes}, E={gg.n_edges}): "
+            f"{json.dumps(rows[name])}")
+    f64 = fits["ours_noise"].scaled(64)
+    g64, k, e, sample_s = _sample_k2(f64, "fidelity (d) ours_noise x64", tr,
+                                     rmat, sampler, ref, rs, torch)
+    launches, err = launches + k, max(err, e)
+    stats64, secs64 = graph_stats(g64, torch)
+    log(f"fidelity (d) table10/ours_noise x64 (n=2^{f64.n}, E={f64.E}, "
+        f"sampled in {sample_s:.3f}s): {json.dumps(stats64)}; seconds "
+        f"{json.dumps({k: round(v, 4) for k, v in secs64.items()})}")
+    check(stats64["triangles"] > 0, "the x64 cora fit has no triangles")
+    batch = gops.EXPAND_BATCH
+    try:
+        gops.EXPAND_BATCH = FID_SMALL_BATCH
+        (tri, cand), tri_s = _timed(lambda: gops.triangle_stats(g64), torch)
+        hop, hop_s = _timed(lambda: gops.hop_plot(g64).tolist(), torch)
+    finally:
+        gops.EXPAND_BATCH = batch
+    log(f"fidelity (d) ours_noise x64 in batches of {FID_SMALL_BATCH} "
+        f"(>= {-(-cand // FID_SMALL_BATCH)} batches of triangle candidates): "
+        f"triangles {tri_s:.4f}s, hop plot {hop_s:.4f}s")
+    same_results("fidelity (d) ours_noise x64 in small batches",
+                 dict(triangles=tri, triangle_candidates=cand, hop_plot=hop),
+                 {k: stats64[k] for k in ("triangles", "triangle_candidates",
+                                          "hop_plot")})
+    g64_cpu = metrics._on(g64, "cpu")
+    same_results("fidelity (d) ours_noise x64 wedges and lcc card = CPU",
+                 {k: stats64[k] for k in ("wedges", "lcc")},
+                 dict(wedges=gops.wedge_count(g64_cpu),
+                      lcc=gops.largest_connected_component(g64_cpu)))
+    del g64_cpu
+    out["table10"] = dict(rows=rows, x64=stats64, x64_s=secs64)
+    del g64
+    walls["d"] = time.time() - t_phase
+
+    # (e) GNN epochs (Table 4) and a 50-epoch GCN card against CPU
+    t_phase = time.time()
+    g_pay = metrics._on(paysim_like(n=2048, n_edges=8000)[0], "cuda")
+    f_pay = fit_structure(g_pay)
+    graphs = {"original": g_pay}
+    for scale in (1, 16):
+        graphs[f"ours_x{scale}"], k, e, _ = _sample_k2(
+            f_pay.scaled(scale), f"fidelity (e) paysim fit x{scale}", tr,
+            rmat, sampler, ref, rs, torch)
+        launches, err = launches + k, max(err, e)
+    epochs = {}
+    for kind in ("gcn", "gat"):
+        t_orig = None
+        for name, gg in graphs.items():
+            t, loss = gnn_epoch_s(gg, kind, tr, torch)
+            check(math.isfinite(loss), f"{kind} on {name}: loss {loss}")
+            t_orig = t if t_orig is None else t_orig
+            epochs[f"{kind}/{name}"] = dict(epoch_s=t, n=gg.n_nodes,
+                                            E=gg.n_edges)
+            if name == "ours_x1":     # Table 4 compares graphs of one size
+                epochs[f"{kind}/{name}"]["rel_timing"] = (
+                    1.0 - abs(t - t_orig) / t_orig)
+    log(f"fidelity (e): Table 4 epoch seconds (hidden 128, 16-d features, 3 "
+        f"timed after 1), rel_timing of the x1 fit against the original: "
+        f"{json.dumps(epochs)}")
+    del graphs
+    g, cont, cat = cora_like()
+    cfg = gnn.GNNConfig()
+    init = {dev: [p.detach().cpu() for p in gnn.init_gnn(
+        tr.PRNGKey(0), cfg, cont.shape[1], dev).parameters()]
+        for dev in ("cuda", "cpu")}
+    d_init = max(float((a - b).abs().max())
+                 for a, b in zip(init["cuda"], init["cpu"]))
+    check(d_init <= GNN_INIT_TOL, f"init_gnn on the card is {d_init} from "
+          f"the CPU's")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        (_, acc, losses), secs = _timed(lambda: gnn.train_node_classifier(
+            g, cont, cat[:, 0], cfg, epochs=50, device=dev), torch)
+        runs[dev] = dict(final_loss=float(losses[-1]), test_acc=acc, s=secs)
+    d_loss = abs(runs["cuda"]["final_loss"] - runs["cpu"]["final_loss"])
+    d_acc = abs(runs["cuda"]["test_acc"] - runs["cpu"]["test_acc"])
+    log(f"fidelity (e): 50-epoch GCN on cora_like() from init_gnn(PRNGKey(0))"
+        f" on each (weights {d_init:.3g} apart, ≤ {GNN_INIT_TOL}): "
+        f"{json.dumps(runs)}; |Δ final loss| {d_loss:.3g} (≤ {GNN_LOSS_TOL}),"
+        f" |Δ test accuracy| {d_acc:.3g} (≤ {GNN_ACC_TOL})")
+    check(d_loss <= GNN_LOSS_TOL and d_acc <= GNN_ACC_TOL,
+          "the GCN trained on the card leaves the CPU's")
+    out["gnn"] = dict(epochs=epochs, gcn50=runs)
+    walls["e"] = time.time() - t_phase
+    out.update(walls=walls, launches=launches, err=err)
+    return out
 
 
 #: the fit phase's draws: rows per generator, one block, seed 0
@@ -1244,7 +1610,8 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
     settings on ``REFIT_SAMPLE_ROWS`` rows: its cardinalities the
     dataset's, GAN losses finite, the refit generator's draw within the
     ``REAL_*`` bounds of the sample; then ``generate(seed=0,
-    scale_nodes=4, chunked=True)`` from it, with K2's counter reset
+    scale_nodes=1, chunked=True)`` from it (scale 1 keeps the smoke's
+    wall; the draw is held at phase 4's ×64), with K2's counter reset
     first: K2 must launch, and K2 and the run's edges equal the plain
     stream on every chunk.  Returns the numbers and K2's launches and
     max error."""
@@ -1375,24 +1742,24 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
     rs.reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
-    g, c, k = pipe.generate(seed=0, scale_nodes=4, chunked=True)
+    g, c, k = pipe.generate(seed=0, scale_nodes=1, chunked=True)
     torch.cuda.synchronize()
     gen_s = time.time() - t0
     launches = rs.LAUNCHES["rmat_sample_prng"]
     check(launches > 0, "generate from the refit never ran cuda_prng")
-    st4 = pipe.struct.scaled(4)
-    check(g.n_edges == st4.E and bool(torch.isfinite(c).all())
-          and tuple(k.shape) == (st4.E, len(cards)),
+    st1 = pipe.struct.scaled(1)
+    check(g.n_edges == st1.E and bool(torch.isfinite(c).all())
+          and tuple(k.shape) == (st1.E, len(cards)),
           "generate from the refit: shapes or non-finite features")
     tg = pipe.timings
-    log(f"refit (c): generate(seed=0, scale_nodes=4, chunked=True): "
+    log(f"refit (c): generate(seed=0, scale_nodes=1, chunked=True): "
         f"{g.n_edges} edges in {gen_s:.3f}s (gen_struct_s "
         f"{tg.gen_struct_s:.3f}, gen_feat_s {tg.gen_feat_s:.3f}, "
         f"gen_align_s {tg.gen_align_s:.3f}), {launches} K2 launches")
     walls["c_fit_and_draw"] = t0 - t_phase
     walls["c_generate"] = gen_s
     t_phase = time.time()
-    err, _ = k2_vs_plain(g, st4, launches, "refit path", True, tr, rmat,
+    err, _ = k2_vs_plain(g, st1, launches, "refit path", True, tr, rmat,
                          sampler, ref, rs, torch)
     check(err == 0, f"K2 disagrees at the refit path's shapes (max {err})")
     walls["c_k2_vs_plain"] = time.time() - t_phase
@@ -2120,8 +2487,17 @@ def main() -> int:
     # kernel is also held against its plain version at the shapes its
     # path gave it
     launches = {}
-    launches["rmat_sample_prng"], e2, largest, asset_pipe = phase_main_path(
-        convert, tr, rmat, sampler, ref, rs, gops, torch)
+    (launches["rmat_sample_prng"], e2, largest, asset_pipe,
+     fid_x64) = phase_main_path(convert, tr, rmat, sampler, ref, rs, gops,
+                                torch)
+    t0 = time.time()
+    fidelity = phase_fidelity(asset_pipe, tr, rmat, sampler, ref, rs, torch)
+    fidelity.update(x64=fid_x64, card=gpu_line())
+    fidelity["walls"].update(a=fid_x64["a_s"], b=fid_x64["b_s"])
+    fid_wall = sum(fidelity["walls"].values())
+    log(f"fidelity: phase 14 wall {fid_wall:.1f}s of its "
+        f"{FID_BUDGET_S:.0f}s budget (c-e {time.time() - t0:.1f}s); "
+        + json.dumps(fidelity))
     fit_launches, fit_err = phase_fit(
         convert, SyntheticGraphPipeline, GANFeatureGenerator, tabformer_like,
         asset_pipe, tr, rmat, sampler, ref, rs, torch)
@@ -2129,7 +2505,7 @@ def main() -> int:
     launches["rmat_sample_bits"], e1 = phase_card_vs_cpu(convert, rs, torch)
     launches["rmat_sample_uniforms"], e3 = phase_narrow_ops(tr, ops, ref, rs,
                                                             torch)
-    for name, e in (("rmat_sample_prng", max(e2, fit_err)),
+    for name, e in (("rmat_sample_prng", max(e2, fit_err, fidelity["err"])),
                     ("rmat_sample_bits", e1),
                     ("rmat_sample_uniforms", e3)):
         errs[name] = max(errs[name], e)
@@ -2152,7 +2528,9 @@ def main() -> int:
                     streamed_launches=stream["launches"],
                     streamed_max_abs_err=stream["err"],
                     refit_path_launches=stream["refit"]["launches"],
-                    refit_path_max_abs_err=stream["refit"]["err"])
+                    refit_path_max_abs_err=stream["refit"]["err"],
+                    fidelity_path_launches=fidelity["launches"],
+                    fidelity_path_max_abs_err=fidelity["err"])
     rows.append(phase_flash_timing(fa, ref, torch,
                                    launches["flash_attention"],
                                    errs["flash_attention"]))

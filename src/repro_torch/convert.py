@@ -26,7 +26,8 @@ format.  Keys (``{j}``/``{i}`` are column / block indices):
 =================================  ======================================
 
 ``lm_params_from_numpy`` carries an LM's weights across: the JAX package's
-parameter tree as numpy arrays → the port's ``DenseLM`` module.
+parameter tree as numpy arrays → the port's ``DenseLM`` module;
+``gnn_params_from_numpy`` does the same for a GCN / GAT.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from repro_torch.core.gbdt import (GBDTClassifier, GBDTRegressor,
                                    PackedForest, forest_from_state)
 from repro_torch.core.pipeline import SyntheticGraphPipeline
 from repro_torch.core.structure import KroneckerFit
+from repro_torch.models.gnn import GNN, GNNConfig, gnn_from_params
 from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import DenseLM
 from repro_torch.tabular.schema import TableSchema
@@ -211,3 +213,12 @@ def lm_params_from_numpy(tree, cfg, device="cuda") -> DenseLM:
     ...); stacked ``(L, ...)`` leaves are split per layer."""
     return DenseLM(tree_map(lambda a: tensor_from_numpy(a).to(device), tree),
                    cfg)
+
+
+def gnn_params_from_numpy(tree, cfg: GNNConfig, device="cuda") -> GNN:
+    """The JAX package's GNN parameters as numpy arrays (a list of one dict
+    a layer: ``w``, ``b``, and GAT's ``att_src``/``att_dst``) → the port's
+    ``GCN``/``GAT`` with the same weights on ``device``."""
+    return gnn_from_params(cfg, [
+        {k: tensor_from_numpy(np.asarray(v)).to(device) for k, v in p.items()}
+        for p in tree])

@@ -1,5 +1,6 @@
-"""Graph substrate: COO edge lists and the structural node features the
-aligner reads (degrees, PageRank, Katz).
+"""Graph substrate: COO edge lists, the structural node features the
+aligner reads (degrees, PageRank, Katz), and the statistics the paper
+scores generated graphs by (hop plot, Table 10; below).
 
 A graph is ``(src, dst, n_src, n_dst)`` with id tensors on one device;
 homogeneous graphs use ``n_src == n_dst``.  ``segment_sum`` of the JAX
@@ -194,3 +195,251 @@ def node_features(g: Graph, n_pr_iter: int = 20) -> torch.Tensor:
         od, idg = out_degrees(g), in_degrees(g)
     return torch.stack([od.to(torch.float32), idg.to(torch.float32),
                         pr * pr.shape[0], torch.log1p(kz)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Hop plot (effective diameter) and the exact structural statistics of the
+# paper's Table 10.  The reference computes them in numpy with Python loops
+# over nodes and edges; here they are torch ops on the graph's device, so
+# they run on generated graphs of 10^8 edges.  Integer results (reach
+# counts, triangles, wedges, component sizes) are exact; float results
+# differ from the reference's only in the order of float64 sums.
+# ---------------------------------------------------------------------------
+
+#: list positions expanded per batch in ``triangle_count`` and
+#: ``hop_plot``: bounds their temporaries to a few GiB
+EXPAND_BATCH = 1 << 27
+
+
+def _row_batches(lens: torch.Tensor, budget: Optional[int] = None):
+    """Consecutive row ranges ``[r0, r1)`` whose ``lens`` sum to at most
+    ``budget`` (default ``EXPAND_BATCH``) plus the first row's length."""
+    budget = EXPAND_BATCH if budget is None else budget
+    rows = lens.numel()
+    cum = torch.cumsum(lens, 0)
+    total = int(cum[-1]) if rows else 0
+    if total <= budget:
+        return [(0, rows)] if total else []
+    cuts = torch.searchsorted(cum, torch.arange(budget, total, budget,
+                                                device=lens.device),
+                              right=True).tolist()
+    bounds = sorted({0, rows, *cuts})
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _expand(starts: torch.Tensor, nodes: torch.Tensor, lens: torch.Tensor):
+    """``(row, pos)``: for each ``nodes[row]`` every position of its list
+    ``starts[v] .. starts[v] + lens[row] - 1``, row by row, as int64."""
+    total = int(lens.sum())
+    dev = nodes.device
+    row = torch.repeat_interleave(
+        torch.arange(nodes.numel(), device=dev), lens, output_size=total)
+    base = starts[nodes] - (torch.cumsum(lens, 0) - lens)
+    return row, base[row] + torch.arange(total, device=dev)
+
+
+def hop_plot(g: Graph, n_sources: int = 32, max_hops: int = 16,
+             seed: int = 0) -> np.ndarray:
+    """d(h): mean fraction of node pairs reachable within h hops, over
+    ``min(n_sources, n)`` BFS sources that numpy's ``default_rng(seed)``
+    picks on the host, as the reference picks them.  The BFS runs on the
+    graph's device over the undirected adjacency (every edge both ways,
+    duplicates and self-loops kept), sorted once into a CSR.  The reach
+    counts are integers, so the curve is the reference's exactly."""
+    n = g.n_nodes
+    dev = g.src.device
+    src = g.src.to(torch.int64)
+    dst = g.dst.to(torch.int64) + (g.n_src if g.bipartite else 0)
+    heads = torch.cat([src, dst])
+    tails = torch.cat([dst, src])[torch.argsort(heads)]
+    deg = torch.bincount(heads, minlength=n)
+    starts = torch.cumsum(deg, 0) - deg
+    del src, dst, heads
+    rng = np.random.default_rng(seed)
+    sources = rng.choice(n, size=min(n_sources, n), replace=False)
+    reach = np.zeros(max_hops + 1, np.int64)
+    for s in sources:
+        seen = torch.zeros(n, dtype=torch.bool, device=dev)
+        seen[int(s)] = True
+        frontier = torch.tensor([int(s)], dtype=torch.int64, device=dev)
+        reach[0] += 1
+        for h in range(1, max_hops + 1):
+            grown = seen.clone()
+            lens = deg[frontier]
+            for r0, r1 in _row_batches(lens):
+                _, pos = _expand(starts, frontier[r0:r1], lens[r0:r1])
+                grown[tails[pos]] = True
+            frontier = torch.nonzero(grown & ~seen).squeeze(1)
+            seen = grown
+            if frontier.numel() == 0:     # nothing new: reach stays put
+                reach[h:] += int(seen.sum())
+                break
+            reach[h] += int(seen.sum())
+    return reach / (len(sources) * n)
+
+
+def effective_diameter(hp: np.ndarray, frac: float = 0.9) -> float:
+    """Interpolated hop count reaching `frac` of the final reachable mass."""
+    total = hp[-1]
+    if total <= 0:
+        return float("inf")
+    target = frac * total
+    for h in range(len(hp)):
+        if hp[h] >= target:
+            if h == 0:
+                return 0.0
+            lo, hi = hp[h - 1], hp[h]
+            return h - 1 + (target - lo) / max(hi - lo, 1e-12)
+    return float(len(hp))
+
+
+def _to_undirected(g: Graph) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``(lo, hi, n)``: the undirected simple graph of ``g`` on its
+    device, each pair once as ``lo < hi`` in ascending ``(lo, hi)`` order
+    (bipartite dst ids offset by ``n_src``), self-loops dropped after the
+    deduplication, as the reference drops them.  Pairs are int64 keys
+    ``lo * n + hi``, which wide ids would overflow in int32."""
+    n = g.n_nodes
+    if n * n > 1 << 63:
+        raise ValueError(f"{n:,} nodes: pair keys lo * n + hi overflow int64")
+    src = g.src.to(torch.int64)
+    dst = g.dst.to(torch.int64) + (g.n_src if g.bipartite else 0)
+    key = torch.unique(torch.minimum(src, dst) * n + torch.maximum(src, dst))
+    del src, dst
+    lo, hi = key // n, key % n
+    keep = lo != hi
+    return lo[keep], hi[keep], n
+
+
+def _undirected_degrees(lo: torch.Tensor, hi: torch.Tensor, n: int
+                        ) -> torch.Tensor:
+    return torch.bincount(torch.cat([lo, hi]), minlength=n)
+
+
+def triangle_stats(g: Graph) -> Tuple[int, int]:
+    """``(triangles, candidates)``: the exact triangle count of ``g``'s
+    undirected simple graph and the number of (edge, neighbour) pairs
+    checked for it.  Each edge is oriented from its end of lower (degree,
+    id); any acyclic orientation counts every triangle once, at the edge
+    between its two lowest nodes, as the reference's does.  For each
+    oriented edge the shorter of its two out-lists is searched in the
+    longer (``searchsorted`` over the sorted int64 keys ``a * n + b``),
+    so the work is Σ over edges of min(d⁺(u), d⁺(v)), in batches of at
+    most ``EXPAND_BATCH`` pairs."""
+    lo, hi, n = _to_undirected(g)
+    if lo.numel() == 0:
+        return 0, 0
+    deg = _undirected_degrees(lo, hi, n)
+    fwd = deg[lo] <= deg[hi]              # ties: lo < hi, the lower id
+    del deg
+    keys = torch.sort(torch.where(fwd, lo, hi) * n
+                      + torch.where(fwd, hi, lo)).values
+    del lo, hi, fwd
+    a, b = keys // n, keys % n
+    dplus = torch.bincount(a, minlength=n)
+    starts = torch.cumsum(dplus, 0) - dplus
+    shorter = dplus[a] <= dplus[b]
+    s = torch.where(shorter, a, b)        # the list walked
+    t = torch.where(shorter, b, a)        # the list searched
+    del a, shorter
+    lens = dplus[s]
+    t_key = t * n                         # the searched list's key prefix
+    del t
+    count = 0
+    for r0, r1 in _row_batches(lens):
+        row, pos = _expand(starts, s[r0:r1], lens[r0:r1])
+        q = t_key[r0:r1][row] + b[pos]
+        del row, pos
+        i = torch.searchsorted(keys, q).clamp_(max=keys.numel() - 1)
+        count += int((keys[i] == q).sum())
+    return count, int(lens.sum())
+
+
+def triangle_count(g: Graph) -> int:
+    """Exact number of triangles of ``g``'s undirected simple graph."""
+    return triangle_stats(g)[0]
+
+
+def wedge_count(g: Graph) -> int:
+    """Σ_v C(d_v, 2) over the deduplicated undirected degrees."""
+    deg = _undirected_degrees(*_to_undirected(g))
+    return int((deg * (deg - 1) // 2).sum())
+
+
+def global_clustering(g: Graph) -> float:
+    w = wedge_count(g)
+    return 3.0 * triangle_count(g) / w if w else 0.0
+
+
+def degree_assortativity(g: Graph) -> float:
+    """Pearson correlation of the deduplicated undirected degrees at the
+    two ends of every edge (each edge both ways); 0.0 when they do not
+    vary."""
+    lo, hi, n = _to_undirected(g)
+    deg = _undirected_degrees(lo, hi, n).to(torch.float64)
+    x = torch.cat([deg[lo], deg[hi]])
+    y = torch.cat([deg[hi], deg[lo]])
+    if float(x.std(correction=0)) < 1e-12:
+        return 0.0
+    # np.corrcoef(x, y)[0, 1], clipped to [-1, 1]
+    xc, yc = x - x.mean(), y - y.mean()
+    r = (xc * yc).sum() / torch.sqrt((xc * xc).sum()) \
+        / torch.sqrt((yc * yc).sum())
+    return float(r.clamp(-1.0, 1.0))
+
+
+def gini_coefficient(degrees) -> float:
+    """Gini coefficient of a degree sequence (a tensor, computed on its
+    device, or an array)."""
+    d = torch.sort(torch.as_tensor(degrees).to(torch.float64)).values
+    n = d.numel()
+    if n == 0 or float(d.sum()) == 0:
+        return 0.0
+    cum = torch.cumsum(d, 0)
+    return float((n + 1 - 2 * float((cum / cum[-1]).sum())) / n)
+
+
+def powerlaw_exponent(degrees, dmin: int = 1) -> float:
+    """MLE alpha for P(d) ∝ d^-alpha over d >= dmin (Clauset et al.)."""
+    d = torch.as_tensor(degrees).to(torch.float64)
+    d = d[d >= dmin]
+    if d.numel() == 0:
+        return float("nan")
+    return float(1.0 + d.numel() / float(torch.log(d / (dmin - 0.5)).sum()))
+
+
+def rel_edge_distribution_entropy(g: Graph) -> float:
+    """Entropy of the degree distribution relative to uniform (Table 10):
+    out-degrees, and for a bipartite graph the in-degrees beside them."""
+    deg = out_degrees(g).to(torch.float64)
+    if g.bipartite:
+        deg = torch.cat([deg, in_degrees(g).to(torch.float64)])
+    p = deg / max(float(deg.sum()), 1)
+    p = p[p > 0]
+    n = p.numel()
+    if n <= 1:
+        return 1.0
+    return float(-(p * torch.log(p)).sum() / np.log(n))
+
+
+def largest_connected_component(g: Graph) -> int:
+    """Size of the largest connected component over ``g.n_nodes`` nodes
+    (an isolated node is a component of one): min-label propagation over
+    the undirected edges with pointer jumping, until no label moves."""
+    lo, hi, n = _to_undirected(g)
+    if n == 0:
+        return 0
+    label = torch.arange(n, device=lo.device)
+    while True:
+        low = torch.minimum(label[lo], label[hi])
+        new = label.scatter_reduce(0, lo, low, "amin")
+        new.scatter_reduce_(0, hi, low, "amin")
+        while True:                       # pointer jumping
+            jumped = new[new]
+            if torch.equal(jumped, new):
+                break
+            new = jumped
+        if torch.equal(new, label):
+            break
+        label = new
+    return int(torch.bincount(label, minlength=n).max())

@@ -14,7 +14,10 @@ the card gives the CPU's bit-pair counts, structure and VGMs exactly;
 its GAN weights after 10 steps within 1e-5 of the CPU's (cuBLAS sums in
 another order) and its holdout qualities within 0.02.  The streaming
 fit's accumulators on the card equal the CPU's exactly (the reservoir's
-int64 hash is numpy's uint64 ``_mix64``), and so does its fit JSON."""
+int64 hash is numpy's uint64 ``_mix64``), and so does its fit JSON.  The
+fidelity scores and graph statistics on the card equal the CPU's
+(integers exactly, floats within 1e-9 relative), and a GCN trained on the
+card follows the CPU's losses within 1e-4."""
 import numpy as np
 import pytest
 import torch
@@ -638,3 +641,87 @@ def test_fit_json_on_card_equals_cpu(cuda, tmp_path):
         texts.append(fe.fit_to_json(*fe.fit_structure_streamed(
             stats, noise=0.03, device=dev)))
     assert texts[0] == texts[1]
+
+
+def _close_stat(got, want):
+    if isinstance(want, int):
+        assert got == want and isinstance(got, int)
+    else:
+        assert got == pytest.approx(want, rel=1e-9, abs=1e-12)
+
+
+def test_scores_and_statistics_on_card_equal_cpu(cuda):
+    """``evaluate_all`` and every graph statistic on the card equal the
+    CPU's on the same tensors: integers exactly, floats within 1e-9
+    relative (1e-12 absolute near 0)."""
+    from repro_torch.core import metrics
+    from repro_torch.data.reference import tabformer_like
+    from repro_torch.graph import ops as gops
+    g_r, c_r, k_r = tabformer_like()
+    g_s, c_s, k_s = tabformer_like(seed=7, n_src=8192, n_edges=200_000)
+    want = metrics.evaluate_all(g_r, c_r, k_r, g_s, c_s, k_s, device="cpu")
+    got = metrics.evaluate_all(g_r, c_r, k_r, g_s, c_s, k_s, device=cuda)
+    for k in want:
+        _close_stat(got[k], want[k])
+    gc = gops.Graph(g_s.src.to(cuda), g_s.dst.to(cuda), g_s.n_src,
+                    g_s.n_dst, True)
+    for stat in ("triangle_count", "wedge_count", "global_clustering",
+                 "degree_assortativity", "rel_edge_distribution_entropy",
+                 "largest_connected_component"):
+        _close_stat(getattr(gops, stat)(gc), getattr(gops, stat)(g_s))
+    np.testing.assert_array_equal(gops.hop_plot(gc), gops.hop_plot(g_s))
+    deg = torch.cat([gops.out_degrees(g_s), gops.in_degrees(g_s)])
+    for fn in (gops.gini_coefficient, gops.powerlaw_exponent):
+        _close_stat(fn(deg.to(cuda)), fn(deg))
+
+
+def test_triangle_count_on_card_known_graph(cuda):
+    """Disjoint cliques K_3..K_40 plus duplicate and reversed edges and
+    self-loops: Σ C(k, 3) triangles, on the card and the CPU, in one batch
+    and in many."""
+    from repro_torch.graph import ops as gops
+    src, dst, base, want = [], [], 0, 0
+    for k in range(3, 41):
+        a, b = np.triu_indices(k, 1)
+        src += list(a + base) + list(b + base) + [base]
+        dst += list(b + base) + list(a + base) + [base]
+        base += k
+        want += k * (k - 1) * (k - 2) // 6
+    g = gops.Graph(torch.tensor(src, dtype=torch.int32, device=cuda),
+                   torch.tensor(dst, dtype=torch.int32, device=cuda),
+                   base, base)
+    assert gops.triangle_count(g) == want
+    batch = gops.EXPAND_BATCH
+    try:
+        gops.EXPAND_BATCH = 97
+        assert gops.triangle_count(g) == want
+    finally:
+        gops.EXPAND_BATCH = batch
+    assert gops.largest_connected_component(g) == 40
+
+
+def test_gcn_loss_on_card_close_to_cpu(cuda):
+    """20 GCN epochs on ``cora_like`` by ``train_node_classifier`` on the
+    card and on the CPU, both from ``init_gnn(PRNGKey(0))``, whose weights
+    on the two are within 1e-6 (the port's normals' tolerance): losses
+    within 1e-4 and the same test accuracy to within one node; two runs
+    on the card give the same losses (the message sums are sorted
+    ``segment_reduce``, not atomics)."""
+    from repro_torch import random as tr
+    from repro_torch.data.reference import cora_like
+    from repro_torch.models import gnn
+    g, cont, cat = cora_like()
+    cfg = gnn.GNNConfig(hidden=128)
+    for a, b in zip(*(gnn.init_gnn(tr.PRNGKey(0), cfg, cont.shape[1],
+                                   device=dev).parameters()
+                      for dev in ("cpu", cuda))):
+        np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                   a.detach().numpy(), rtol=0, atol=1e-6)
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda), ("card2", cuda)):
+        runs[name] = gnn.train_node_classifier(
+            g, cont, cat[:, 0], cfg, epochs=20, device=dev)
+    np.testing.assert_allclose(runs["card"][2], runs["cpu"][2], rtol=0,
+                               atol=1e-4)
+    np.testing.assert_array_equal(runs["card"][2], runs["card2"][2])
+    assert abs(runs["card"][1] - runs["cpu"][1]) <= 0.01
