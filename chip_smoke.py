@@ -6,9 +6,9 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per library, all at once) and drives the port's paths on the card:
 graph generation (phases 2-7), fitting (phase 4b), writing datasets to
-disk (phase 13), scoring what it generates (phase 14), the dense LM's
-scoring forward and serving engine (phases 8-10) and the toolchain probes
-S1-S4 (phase 12):
+disk (phase 13), scoring what it generates (phase 14), the paper's
+baselines (phase 15), the dense LM's scoring forward and serving engine
+(phases 8-10) and the toolchain probes S1-S4 (phase 12):
 
 1. build the kernels; print the card's name and power limit; read the
    built SASS: the in-register R-MAT kernel's level loop, and the
@@ -117,13 +117,15 @@ S1-S4 (phase 12):
     uncalibrated (MLE + Eq. 6) θ must lie within 0.07 of the generator's;
     (b)'s dataset fitted on the card and on the CPU, the fit JSONs equal;
     ``fit_streamed`` of one ``accumulate`` pass over (c)'s serial
-    dataset at the asset's settings on 40 000 sample rows (its
+    dataset at the asset's settings, but ``REFIT_GBDT_ROUNDS`` (10)
+    aligner rounds, on ``REFIT_SAMPLE_ROWS`` (40 000) sample rows (its
     cardinalities the dataset's, GAN losses finite, its draw within the
     ``REAL_*`` bounds of the sample), then ``generate(seed=0,
-    scale_nodes=1, chunked=True)`` from it: K2 must launch (counter
-    reset first) and equal the plain stream on every chunk, folded into
-    K2's row as ``refit_path_launches``/``refit_path_max_abs_err``.
-    It works in a temporary directory that it removes.
+    scale_nodes=1, chunked=True)`` from it: K2 must
+    launch (counter reset first) and equal the plain stream on every
+    chunk, folded into K2's row as
+    ``refit_path_launches``/``refit_path_max_abs_err``.  It works in a
+    temporary directory that it removes.
 14. fidelity (run inside and right after phase 4): (a) Table 2's four
     scores of phase 4's own x64 output against ``tabformer_like()``, each
     timed alone, then ``evaluate_all``, equal to them; finite and in
@@ -154,7 +156,31 @@ S1-S4 (phase 12):
     accuracies within ``GNN_ACC_TOL``.  K2's launches on (c)-(e) (counter
     reset before each sampling call) and its error against the plain
     stream are K2's ``fidelity_path_*`` fields; the phase's wall is logged
-    beside its ``FID_BUDGET_S``.
+    beside its ``FID_BUDGET_S``.  Phase 4's log line counts the ×64
+    graph's non-finite ``log1p(katz)`` entries beside the size of its
+    largest connected component (14(b)): Katz overflows float32 across
+    the giant component, as in the reference.
+15. baselines (run after phase 4b, on the asset pipeline and 4b's fit):
+    (a) Table 6's grid as ``benchmarks/table6_ablation.py`` composes it
+    (the asset's kronecker structure, GAN and GBDT aligner; SBM, ER, KDE
+    and random fitted on ``tabformer_like()``; the random aligner), all
+    18 combinations generated at ×4 (640 000 edges) by
+    ``SyntheticGraphPipeline.fitted(...).generate`` and scored by
+    ``evaluate_all``; the six with neither the GAN nor the GBDT aligner
+    equal byte for byte on the CPU, the six GBDT-aligned KDE and random
+    ones at ``BASE_GBDT_CPU_SCALE`` equal on ≥ 99% of aligned rows; K2
+    against its plain stream on the kronecker rows; (b) Table 2's
+    ``random`` (ER + random + random, fitted on the card), ``graphworld``
+    (SBM + 4b's GAN + random aligner, SBM's host and card seconds) and
+    ``ours`` (the asset) at ×16, stage times and ``evaluate_all``; (c)
+    ``ERGenerator`` at ×64 (163 840 000 edges) and
+    ``sample_erdos_renyi`` on 2^20 × 2^20 nodes at Table 8's 2^20, 2^23
+    and 2^25 edges, warm, edges/s, equal to the CPU's at 2^23; (d) a KDE
+    + random-aligner dataset at ×4 by ``DatasetJob`` (3 shards), card =
+    CPU file for file, its manifest's ``features`` only ``n_cont`` and
+    ``cat_cards``, a deleted shard resumed to the same bytes.  K2's
+    launches on (a)-(b) and its error are its ``baselines_path_*``
+    fields; the phase's wall is logged beside ``BASE_BUDGET_S``.
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
 ``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
@@ -586,10 +612,7 @@ def phase_main_path(convert, tr, rmat, sampler, ref, rs, gops, torch):
     check(bool(((cat >= 0) & (cat < cards)).all()), "category out of range")
     feats = gops.node_features(g)
     bad = (~torch.isfinite(feats)).sum(0).tolist()
-    log(f"main path: non-finite node_features entries per column "
-        f"[out_deg, in_deg, pagerank, log1p(katz)] = {bad} of "
-        f"{feats.shape[0]} nodes (Katz overflows float32 on large hubs, "
-        f"as in the reference)")
+    n_nodes = feats.shape[0]
     del feats
 
     err, largest = k2_vs_plain(g, st, launches["rmat_sample_prng"], "main "
@@ -597,6 +620,11 @@ def phase_main_path(convert, tr, rmat, sampler, ref, rs, gops, torch):
                                torch)
     check(err == 0, f"K2 disagrees at the main path's shapes (max {err})")
     fidelity = phase_fidelity_x64(g, cont, cat, torch)
+    log(f"main path: non-finite node_features entries per column "
+        f"[out_deg, in_deg, pagerank, log1p(katz)] = {bad} of {n_nodes} "
+        f"nodes; the largest connected component holds "
+        f"{fidelity['stats']['lcc']} nodes (Katz overflows float32 across "
+        f"the giant component, as in the reference)")
     del g, cont, cat
     torch.cuda.empty_cache()
     return launches["rmat_sample_prng"], err, largest, pipe, fidelity
@@ -1016,7 +1044,8 @@ def phase_fit(convert, SyntheticGraphPipeline, GANFeatureGenerator,
     fitted by ``SyntheticGraphPipeline(noise=0.03, gan_steps=200)`` on the
     card, held against the committed asset (the JAX package's fit of the
     same table), then generating through K2.  Returns K2's launches in
-    that generate and K2's max error at the shapes it gave K2."""
+    that generate, K2's max error at the shapes it gave K2 and the
+    fitted pipeline."""
     import dataclasses
     import numpy as np
     from repro_torch.graph.ops import Graph
@@ -1137,7 +1166,16 @@ def phase_fit(convert, SyntheticGraphPipeline, GANFeatureGenerator,
           "one")
     del enc, ctrl, step, c, k
     torch.cuda.empty_cache()
-    return launches, err
+    return launches, err, pipe
+
+
+def _row_frac(c1, k1, c2, k2, torch) -> float:
+    """The share of aligned rows equal on card and CPU (phases 5 and 15):
+    categories equal and continuous values within 1e-5."""
+    c1, k1, c2, k2 = (x.cpu() for x in (c1, k1, c2, k2))
+    rows = (k1 == k2).all(1) & torch.isclose(c1, c2, rtol=1e-5,
+                                             atol=1e-5).all(1)
+    return rows.float().mean().item()
 
 
 def phase_card_vs_cpu(convert, rs, torch):
@@ -1162,9 +1200,7 @@ def phase_card_vs_cpu(convert, rs, torch):
               int((d1.to(torch.int64) - d2).abs().max()))
     check(err == 0 and s1.shape == s2.shape,
           "struct ids differ between card and CPU")
-    rows = ((k1 == k2).all(1)
-            & torch.isclose(c1, c2, rtol=1e-5, atol=1e-5).all(1))
-    frac = rows.float().mean().item()
+    frac = _row_frac(c1, k1, c2, k2, torch)
     log(f"card vs cpu (scale 1, cuda_bits): struct identical, aligned rows "
         f"equal on {frac:.4%}, max |cont diff| "
         f"{(c1 - c2).abs().max().item():.3g}, bits-kernel launches "
@@ -1548,8 +1584,14 @@ def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch) -> dict:
 
 
 #: phase 13(d): the featured refit's row sample, the size of the table
-#: phase 4b fits, which keeps the host GBDT fit near phase 4b's time
+#: phase 4b fits
 REFIT_SAMPLE_ROWS = 40_000
+#: phase 13(d)(c): the refit's GBDT aligner rounds, a tenth of the
+#: asset's 100: a depth cut for the smoke's wall that phase 15 took (the
+#: host GBDT fit took 62-76 s of the refit, 39.8 s at 50 rounds).  Fewer
+#: sample rows fail the refit GAN's draw check instead: 0.632 of a column
+#: in range at 10 000 rows (bound 0.8, PERF.md)
+REFIT_GBDT_ROUNDS = 10
 #: the JAX package's round-trip tolerances (``tests/test_fit_engine.py``):
 #: the bit-pair MLE against the θ the dataset was drawn with, the fit
 #: against the generator's θ (``fit_dataset --check-theta``)
@@ -1607,7 +1649,8 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
     (b) ``accumulate`` + ``fit_structure_streamed`` of the ×4 dataset on
     the card and on the CPU: the fit JSON identical.
     (c) ``fit_streamed`` of the featured ×16 dataset at the asset's
-    settings on ``REFIT_SAMPLE_ROWS`` rows: its cardinalities the
+    settings but ``REFIT_GBDT_ROUNDS`` aligner rounds, on
+    ``REFIT_SAMPLE_ROWS`` rows: its cardinalities the
     dataset's, GAN losses finite, the refit generator's draw within the
     ``REAL_*`` bounds of the sample; then ``generate(seed=0,
     scale_nodes=1, chunked=True)`` from it (scale 1 keeps the smoke's
@@ -1615,9 +1658,11 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
     first: K2 must launch, and K2 and the run's edges equal the plain
     stream on every chunk.  Returns the numbers and K2's launches and
     max error."""
+    import dataclasses
     import os
     import numpy as np
     from repro_torch.core import fit_engine as fe
+    from repro_torch.core.aligner import AlignerConfig
     from repro_torch.core.pipeline import SyntheticGraphPipeline
     from repro_torch.datastream import DatasetFitSource, ShardedGraphDataset
     from repro_torch.scripts.fit_dataset import generator_provenance
@@ -1710,7 +1755,10 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
     # (c) features, then generation from the refit through K2; one pass
     # builds the stats, whose sample the fit trains on and the draw meets
     t_phase = time.time()
-    pipe = SyntheticGraphPipeline(noise=0.03, gan_steps=200, device="cuda")
+    gbdt = dataclasses.replace(AlignerConfig().gbdt,
+                               n_rounds=REFIT_GBDT_ROUNDS)
+    pipe = SyntheticGraphPipeline(noise=0.03, gan_steps=200, device="cuda",
+                                  aligner_cfg=AlignerConfig(gbdt=gbdt))
     torch.cuda.synchronize()
     t0 = time.time()
     stats16 = fe.accumulate(DatasetFitSource(path16),
@@ -1722,7 +1770,7 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
     tm = pipe.timings
     log(f"refit (c): fit_streamed of the featured x16 dataset's stats, "
         f"{REFIT_SAMPLE_ROWS} sample rows, noise=0.03, gan_steps=200, GBDT "
-        f"100 rounds depth 5: accumulate {t_acc16:.3f}s "
+        f"{REFIT_GBDT_ROUNDS} rounds depth 5: accumulate {t_acc16:.3f}s "
         f"fit_struct_s={tm.fit_struct_s:.3f} "
         f"fit_feat_s={tm.fit_feat_s:.3f} fit_align_s={tm.fit_align_s:.3f} "
         f"wall_s={wall:.3f}; struct {pipe.struct}, chosen "
@@ -1774,6 +1822,296 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
                err=err)
     del g, c, k, pipe, stats16
     torch.cuda.empty_cache()
+    return out
+
+
+#: phase 15 (baselines): Table 6's grid at x4 (640 000 edges), Table 2's
+#: three methods at x16 (10 240 000 edges), ``ERGenerator`` at x64
+#: (163 840 000 edges) and ``sample_erdos_renyi`` at Table 8's full sizes
+#: on 2^20 x 2^20 nodes, whose ids at 2^23 edges the CPU draws too
+BASE_GRID_SCALE, BASE_T2_SCALE, BASE_ER_SCALE = 4, 16, 64
+T8_NODES, T8_EDGES, T8_CPU_EDGES = 1 << 20, (1 << 20, 1 << 23, 1 << 25), \
+    1 << 23
+#: phase 15(a): the scale at which the GBDT-aligned KDE and random rows
+#: are drawn on the card and on the CPU and held to phase 4's criterion.
+#: x1, a depth cut for the phase's wall: (a) took 45.5 s with the six at
+#: x4 (the CPU's GBDT inference) and 14.8 s at x1 on the card's host; at
+#: x4 the six were equal on 100% of rows (PERF.md)
+BASE_GBDT_CPU_SCALE = 1
+#: phase 15(d): the KDE + random-aligner dataset, x4 in shards of 2^18
+#: edges (3 shards; the CPU's plain K2 pays per chunk)
+BASE_DS_SCALE, BASE_DS_SHARD = 4, 1 << 18
+#: phase 15's wall budget in seconds
+BASE_BUDGET_S = 60.0
+
+
+def _same_bytes(a, b) -> bool:
+    """Tensors equal byte for byte (floats by their bit patterns)."""
+    import torch
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _baseline_parts(asset_pipe, cpu_pipe, g_r, c_r, k_r, dev: str) -> dict:
+    """Table 6's components on ``dev``, fitted once as
+    ``benchmarks/table6_ablation.py`` fits them: the asset's kronecker
+    structure, GAN and GBDT aligner; SBM, ER, KDE and random fitted on
+    ``tabformer_like()``; the random aligner."""
+    from repro_torch.core.aligner import RandomAligner
+    from repro_torch.core.baselines import ERGenerator, SBMGenerator
+    from repro_torch.core.features import (KDEFeatureGenerator,
+                                           RandomFeatureGenerator)
+    from repro_torch.graph.ops import Graph
+    base = asset_pipe if dev == "cuda" else cpu_pipe
+    gd = Graph(g_r.src.to(dev), g_r.dst.to(dev), g_r.n_src, g_r.n_dst,
+               g_r.bipartite)
+    schema = base.schema
+    return dict(
+        struct={"kronecker": base.struct,
+                "sbm": SBMGenerator(device=dev).fit(gd),
+                "er": ERGenerator(device=dev).fit(gd)},
+        features={"gan": base.features,
+                  "kde": KDEFeatureGenerator(schema, device=dev).fit(c_r,
+                                                                     k_r),
+                  "random": RandomFeatureGenerator(schema, dev).fit(c_r,
+                                                                   k_r)},
+        aligner={"xgboost": base.aligner, "random": RandomAligner(schema)})
+
+
+def phase_baselines(asset_pipe, fit_pipe, tr, rmat, sampler, ref, rs,
+                    torch) -> dict:
+    """Phase 15: the paper's baselines on the card.  (a) Table 6's grid:
+    the components of ``_baseline_parts`` recomposed by
+    ``SyntheticGraphPipeline.fitted`` into all 18 combinations, each
+    ``generate(seed=0, scale_nodes=4, chunked=True)`` scored by
+    ``evaluate_all`` against ``tabformer_like()``; the six without the GAN
+    or the GBDT aligner drawn on the CPU too (the kronecker rows through
+    the plain version of the card's stream), ids and rows byte for byte;
+    the six
+    GBDT-aligned KDE and random ones at ``BASE_GBDT_CPU_SCALE`` on both,
+    aligned rows equal on ≥ 99%; K2 against its plain stream on the
+    kronecker rows.  (b) Table 2's three methods at x16, stage times and
+    ``evaluate_all``: ``random`` (``fit`` of ER, random features and the
+    random aligner on the card), ``graphworld`` (SBM with phase 4b's GAN
+    and the random aligner; SBM's host and card seconds) and ``ours`` (the
+    asset, ``chunked=True``, K2 held as in (a)).  (c) ``ERGenerator`` at
+    x64; ``sample_erdos_renyi`` at Table 8's sizes, a warm call after a
+    warm-up each, and its ids at 2^23 edges equal to the CPU's.  (d) A
+    KDE + random-aligner dataset at x4 by ``DatasetJob`` on the card and
+    on the CPU (``cuda_prng``'s plain version), every file equal, the
+    manifest's ``features`` only ``n_cont`` and ``cat_cards``; one shard
+    deleted and resumed on the card, the files unchanged.  Returns the
+    numbers, K2's launches on (a)-(b) and its max error."""
+    import itertools
+    import math
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.core import metrics
+    from repro_torch.core.aligner import RandomAligner
+    from repro_torch.core.pipeline import SyntheticGraphPipeline
+    from repro_torch.data.reference import tabformer_like
+    from repro_torch.datastream import DatasetJob, FeatureSpec, Manifest
+    g_r, c_r, k_r = tabformer_like()
+    cpu_pipe = convert.pipeline_from_state(convert.load_state(ASSET),
+                                           device="cpu")
+    out, walls, launches, err = {}, {}, 0, 0
+
+    def score(g, c, k):
+        m, secs = _timed(lambda: metrics.evaluate_all(g_r, c_r, k_r, g, c,
+                                                      k), torch)
+        check(all(math.isfinite(v) for v in m.values()),
+              f"non-finite score in {m}")
+        return m, secs
+
+    # (a) Table 6's grid at x4
+    t_phase = time.time()
+    parts = {dev: _baseline_parts(asset_pipe, cpu_pipe, g_r, c_r, k_r, dev)
+             for dev in ("cuda", "cpu")}
+    walls["a_fit"] = time.time() - t_phase
+    grid = {}
+    for s, f, a in itertools.product(("kronecker", "sbm", "er"),
+                                     ("gan", "kde", "random"),
+                                     ("xgboost", "random")):
+        name = f"{s}+{f}+{a}"
+
+        def pipe_on(dev):
+            p = parts[dev]
+            return SyntheticGraphPipeline.fitted(
+                p["struct"][s], p["features"][f], p["aligner"][a],
+                asset_pipe.bipartite, device=dev)
+
+        pipe = pipe_on("cuda")
+        rs.reset_launches()
+        (g, c, k), gen_s = _timed(lambda: pipe.generate(
+            seed=0, scale_nodes=BASE_GRID_SCALE, chunked=True), torch)
+        n_k2 = rs.LAUNCHES["rmat_sample_prng"]
+        check(g.n_edges == g_r.n_edges * BASE_GRID_SCALE ** 2
+              and tuple(c.shape) == (g.n_edges, c_r.shape[1])
+              and tuple(k.shape) == (g.n_edges, k_r.shape[1])
+              and bool(torch.isfinite(c).all()), f"grid {name}: shapes")
+        m, score_s = score(g, c, k)
+        row = dict(deg=m["degree_dist"], corr=m["feature_corr"],
+                   joint=m["degree_feat_dist"], gen_s=gen_s,
+                   score_s=score_s)
+        if s == "kronecker":
+            e, _ = k2_vs_plain(g, pipe.struct.scaled(BASE_GRID_SCALE), n_k2,
+                               f"baselines (a) {name}", False, tr, rmat,
+                               sampler, ref, rs, torch)
+            check(e == 0, f"K2 disagrees on grid {name} (max {e})")
+            launches, err = launches + n_k2, max(err, e)
+        else:
+            check(n_k2 == 0, f"grid {name}: {n_k2} K2 launches")
+        def on_cpu(scale):
+            # the stream the card's auto backend chose, as the CPU's
+            # plain version of it
+            be = sampler.resolve_backend(
+                "auto", asset_pipe.struct.scaled(scale).E, "cuda").name
+            return pipe_on("cpu").generate(seed=0, scale_nodes=scale,
+                                           chunked=True, backend=be)
+
+        if f != "gan" and a == "random":
+            gc, cc, kc = on_cpu(BASE_GRID_SCALE)
+            check(all(_same_bytes(x, y) for x, y in (
+                (g.src, gc.src), (g.dst, gc.dst), (c, cc), (k, kc))),
+                f"grid {name}: card and CPU bytes differ")
+            row["card_eq_cpu"] = True
+        elif f != "gan":
+            if BASE_GBDT_CPU_SCALE != BASE_GRID_SCALE:
+                g, c, k = pipe.generate(seed=0,
+                                        scale_nodes=BASE_GBDT_CPU_SCALE,
+                                        chunked=True)
+            gc, cc, kc = on_cpu(BASE_GBDT_CPU_SCALE)
+            check(_same_bytes(g.src, gc.src) and _same_bytes(g.dst, gc.dst),
+                  f"grid {name}: card and CPU ids differ")
+            frac = _row_frac(c, k, cc, kc, torch)
+            check(frac >= 0.99, f"grid {name}: aligned rows card vs CPU "
+                  f"equal on {frac:.4%}")
+            row["card_vs_cpu_rows"] = frac
+        grid[name] = row
+        log(f"baselines (a) {name} x{BASE_GRID_SCALE}: deg "
+            f"{row['deg']:.4f} corr {row['corr']:.4f} joint "
+            f"{row['joint']:.4f}; generate {gen_s:.3f}s, evaluate_all "
+            f"{score_s:.3f}s; card vs CPU "
+            f"{row.get('card_eq_cpu', row.get('card_vs_cpu_rows', '-'))}")
+        del g, c, k
+    walls["a"] = time.time() - t_phase
+    out["grid"] = grid
+
+    # (b) Table 2's three methods at x16
+    t_phase = time.time()
+    methods = {
+        "random": SyntheticGraphPipeline(
+            struct="er", features="random", aligner="random").fit(g_r, c_r,
+                                                                  k_r),
+        "graphworld": SyntheticGraphPipeline.fitted(
+            parts["cuda"]["struct"]["sbm"], fit_pipe.features,
+            RandomAligner(asset_pipe.schema), asset_pipe.bipartite),
+        "ours": asset_pipe}
+    table2 = {}
+    for name, pipe in methods.items():
+        rs.reset_launches()
+        (g, c, k), wall = _timed(lambda: pipe.generate(
+            seed=0, scale_nodes=BASE_T2_SCALE,
+            chunked=name == "ours"), torch)
+        n_k2 = rs.LAUNCHES["rmat_sample_prng"]
+        tm = pipe.timings
+        m, score_s = score(g, c, k)
+        check(g.n_edges == g_r.n_edges * BASE_T2_SCALE ** 2,
+              f"table 2 {name}: {g.n_edges} edges")
+        table2[name] = dict(scores=m, score_s=score_s, wall_s=wall,
+                            gen_struct_s=tm.gen_struct_s,
+                            gen_feat_s=tm.gen_feat_s,
+                            gen_align_s=tm.gen_align_s)
+        if name == "graphworld":
+            table2[name].update(sbm_host_s=pipe.struct.last_host_s,
+                                sbm_card_s=tm.gen_struct_s
+                                - pipe.struct.last_host_s)
+        if name == "ours":
+            e, _ = k2_vs_plain(g, pipe.struct.scaled(BASE_T2_SCALE), n_k2,
+                               "baselines (b) ours", False, tr, rmat,
+                               sampler, ref, rs, torch)
+            check(e == 0, f"K2 disagrees on Table 2's ours (max {e})")
+            launches, err = launches + n_k2, max(err, e)
+        log(f"baselines (b) Table 2 {name} x{BASE_T2_SCALE} "
+            f"({g.n_edges} edges): {json.dumps(table2[name])}")
+        del g, c, k
+    walls["b"] = time.time() - t_phase
+    out["table2"] = table2
+
+    # (c) ER at x64, then Table 8's sizes
+    t_phase = time.time()
+    er = parts["cuda"]["struct"]["er"]
+    g, er_s = _timed(lambda: er.sample(np.random.default_rng(0),
+                                       BASE_ER_SCALE), torch)
+    check(g.n_edges == g_r.n_edges * BASE_ER_SCALE ** 2
+          and int(g.src.max()) < g.n_src and int(g.dst.max()) < g.n_dst
+          and int(g.src.min()) >= 0 and g.src.is_cuda,
+          "ERGenerator x64: edge count or ids")
+    out["er_x64"] = dict(edges=g.n_edges, s=er_s, eps=g.n_edges / er_s)
+    del g
+    t8 = {}
+    for e in T8_EDGES:
+        rmat.sample_erdos_renyi(tr.PRNGKey(0), T8_NODES, T8_NODES, e)
+        (s, d), secs = _timed(lambda: rmat.sample_erdos_renyi(
+            tr.PRNGKey(1), T8_NODES, T8_NODES, e), torch)
+        t8[e] = dict(s=secs, eps=e / secs)
+        if e == T8_CPU_EDGES:
+            ws, wd = rmat.sample_erdos_renyi(tr.PRNGKey(1), T8_NODES,
+                                             T8_NODES, e, device="cpu")
+            check(_same_bytes(s, ws) and _same_bytes(d, wd),
+                  f"sample_erdos_renyi at {e} edges: card and CPU differ")
+            t8[e]["card_eq_cpu"] = True
+        del s, d
+    out["table8"] = t8
+    log(f"baselines (c) ERGenerator x{BASE_ER_SCALE}: "
+        f"{json.dumps(out['er_x64'])}; sample_erdos_renyi on "
+        f"{T8_NODES} x {T8_NODES} nodes, warm: {json.dumps(t8)}")
+    walls["c"] = time.time() - t_phase
+
+    # (d) a KDE + random-aligner dataset, card against CPU, then resumed
+    t_phase = time.time()
+    fit = asset_pipe.struct.scaled(BASE_DS_SCALE)
+    work = tempfile.mkdtemp(prefix="chip_smoke_base_")
+    try:
+        def job(dev):
+            spec = FeatureSpec(parts[dev]["features"]["kde"],
+                               RandomAligner(asset_pipe.schema))
+            return DatasetJob(fit, os.path.join(work, dev),
+                              shard_edges=BASE_DS_SHARD, seed=0,
+                              features=spec, backend="cuda_prng",
+                              device=dev)
+
+        trees, ds_s = {}, {}
+        for dev in ("cuda", "cpu"):
+            _, ds_s[dev] = _timed(lambda: job(dev).run(), torch)
+            trees[dev] = _tree(os.path.join(work, dev))
+        check(trees["cuda"] == trees["cpu"],
+              "KDE + random-aligner dataset: card and CPU files differ")
+        path = os.path.join(work, "cuda")
+        man = Manifest.load(path)
+        want = {"n_cont": asset_pipe.schema.n_cont,
+                "cat_cards": list(asset_pipe.schema.cat_cards)}
+        check(man.features == want, f"manifest features {man.features}")
+        check(len(man.shards) >= 2, f"{len(man.shards)} shards")
+        os.remove(os.path.join(path, man.shards[1].files["cont"]))
+        _, resume_s = _timed(lambda: job("cuda").resume(), torch)
+        check(_tree(path) == trees["cuda"],
+              "KDE + random-aligner dataset: resume changed the files")
+        out["dataset"] = dict(edges=fit.E, shards=len(man.shards),
+                              files=len(trees["cuda"]), card_s=ds_s["cuda"],
+                              cpu_s=ds_s["cpu"], resume_s=resume_s)
+        log(f"baselines (d) KDE + random aligner at x{BASE_DS_SCALE}: "
+            f"{json.dumps(out['dataset'])}; card = CPU byte for byte, "
+            f"manifest features {man.features}, resumed shard 1 unchanged")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    walls["d"] = time.time() - t_phase
+    out.update(walls=walls, launches=launches, err=err, card=gpu_line())
     return out
 
 
@@ -2479,10 +2817,14 @@ def main() -> int:
                   for c in wide["prng_vec4_kernel"].values()),
           "S3's SASS holds no 16-byte store")
 
+    def clock(phases: str) -> None:
+        log(f"clock: phases {phases} done at {time.time() - t_start:.1f}s")
+
     phase_rng(tr, torch)
     errs = phase_kernels(tr, ref, rs, torch)
     errs["flash_attention"], f32_err, early = phase_flash_kernel(fa, ref,
                                                                  torch)
+    clock("1-3, 8 (kernels)")
     # each path runs with the counters at 0 and is read right after; each
     # kernel is also held against its plain version at the shapes its
     # path gave it
@@ -2490,6 +2832,7 @@ def main() -> int:
     (launches["rmat_sample_prng"], e2, largest, asset_pipe,
      fid_x64) = phase_main_path(convert, tr, rmat, sampler, ref, rs, gops,
                                 torch)
+    clock("4, 14(a)-(b)")
     t0 = time.time()
     fidelity = phase_fidelity(asset_pipe, tr, rmat, sampler, ref, rs, torch)
     fidelity.update(x64=fid_x64, card=gpu_line())
@@ -2498,28 +2841,41 @@ def main() -> int:
     log(f"fidelity: phase 14 wall {fid_wall:.1f}s of its "
         f"{FID_BUDGET_S:.0f}s budget (c-e {time.time() - t0:.1f}s); "
         + json.dumps(fidelity))
-    fit_launches, fit_err = phase_fit(
+    clock("14(c)-(e)")
+    fit_launches, fit_err, fit_pipe = phase_fit(
         convert, SyntheticGraphPipeline, GANFeatureGenerator, tabformer_like,
         asset_pipe, tr, rmat, sampler, ref, rs, torch)
-    del asset_pipe
+    clock("4b")
+    t0 = time.time()
+    base = phase_baselines(asset_pipe, fit_pipe, tr, rmat, sampler, ref, rs,
+                           torch)
+    log(f"baselines: phase 15 wall {time.time() - t0:.1f}s of its "
+        f"{BASE_BUDGET_S:.0f}s budget; " + json.dumps(base))
+    del asset_pipe, fit_pipe
+    torch.cuda.empty_cache()
+    clock("15")
     launches["rmat_sample_bits"], e1 = phase_card_vs_cpu(convert, rs, torch)
     launches["rmat_sample_uniforms"], e3 = phase_narrow_ops(tr, ops, ref, rs,
                                                             torch)
-    for name, e in (("rmat_sample_prng", max(e2, fit_err, fidelity["err"])),
+    for name, e in (("rmat_sample_prng", max(e2, fit_err, fidelity["err"],
+                                             base["err"])),
                     ("rmat_sample_bits", e1),
                     ("rmat_sample_uniforms", e3)):
         errs[name] = max(errs[name], e)
     phase_struct_at_scale(tr, rmat, KroneckerFit, rs, torch)
+    clock("5-7")
     stream = phase_datastream(convert, tr, rmat, sampler, ref, rs, torch)
     errs["rmat_sample_prng"] = max(errs["rmat_sample_prng"], stream["err"],
                                    stream["refit"]["err"])
     log("datastream: " + json.dumps(stream))
+    clock("13")
     model, params, launches["flash_attention"], e4 = phase_lm_scoring(
         tr, get_config, Model, transformer, fa, rs, ref, torch)
     errs["flash_attention"] = max(errs["flash_attention"], e4)
     phase_serving(model, params, ServingEngine, Request, fa, torch)
     del model, params
     torch.cuda.empty_cache()
+    clock("9-10")
     rows = phase_timing(tr, ref, rs, torch, errs, launches, largest)
     if sass:
         rows[-1]["sass_level_loop"] = sass
@@ -2530,7 +2886,9 @@ def main() -> int:
                     refit_path_launches=stream["refit"]["launches"],
                     refit_path_max_abs_err=stream["refit"]["err"],
                     fidelity_path_launches=fidelity["launches"],
-                    fidelity_path_max_abs_err=fidelity["err"])
+                    fidelity_path_max_abs_err=fidelity["err"],
+                    baselines_path_launches=base["launches"],
+                    baselines_path_max_abs_err=base["err"])
     rows.append(phase_flash_timing(fa, ref, torch,
                                    launches["flash_attention"],
                                    errs["flash_attention"]))
@@ -2538,6 +2896,7 @@ def main() -> int:
                     early_rows_excess=early["kernel"],
                     early_rows_sdpa_excess=early["sdpa"],
                     sass_opcodes=list(tc_sass.values()))
+    clock("11")
     rows += phase_probes(spike, ref, torch)
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f}s, "
         "builds included")

@@ -74,8 +74,9 @@ class GBDTAligner:
     #: (``"gbdt-scan-v2"``) only to a tolerance, and rank matching turns a
     #: last-bit difference into a moved row, so a resume across packages
     #: must refuse instead of mixing streams.  Bump when the port's sums
-    #: change order.
-    stream_marker = "torch-gbdt-v1"
+    #: change order.  v2: node-feature sums and the key columns' spread
+    #: in float64, rounded once, so the card's alignment equals the CPU's.
+    stream_marker = "torch-gbdt-v2"
 
     def __init__(self, schema: TableSchema,
                  cfg: Optional[AlignerConfig] = None, kind: str = "edge", *,
@@ -202,7 +203,9 @@ class GBDTAligner:
         """Hierarchical rank keys over (primary, secondary) column pairs:
         the primary key, with noise ε ~ N(0, 1/R² − 1) on the prediction
         side, is ranked and bucketed at √n resolution; the secondary
-        breaks ties within buckets.  Noise is float64, drawn by ``rng``."""
+        breaks ties within buckets.  Noise is float64, drawn by ``rng``.
+        One moved key swaps rows all along the ranking, so the spread that
+        scales each key is computed alike on every device."""
         n = len(pred2)
         dev = pred2.device
         n_buckets = max(1, int(np.sqrt(n)))
@@ -214,7 +217,10 @@ class GBDTAligner:
 
         def keys(mat, noise_s):
             col = mat[:, 0]
-            sd = col.std(unbiased=False) + 1e-9
+            # the spread in float64, rounded once: the card's and the
+            # CPU's reductions, summed in their own orders, round alike
+            sd = col.to(torch.float64).std(unbiased=False).to(
+                torch.float32) + 1e-9
             key = (col / sd).to(torch.float64) + noise(noise_s + 1e-9)
             ranks = torch.empty(n, dtype=torch.int64, device=dev)
             ranks[_stable_argsort(key)] = torch.arange(n, device=dev)

@@ -1,4 +1,5 @@
-"""GAN feature generation (paper §3.3): codec, training and sampling.
+"""Feature generation (paper §3.3): the codec, the GAN's training and
+sampling, and the KDE and Random baselines of the ablation (Table 6).
 
 Generator and discriminator are both the paper's
 ``θ(ResBlock(...(FC(x))))`` with ``ResBlock(x) = x + Dropout(ReLU(FC(
@@ -15,6 +16,16 @@ the reference does (``var`` over the batch, ddof 0), so a row's output
 depends on the block it is drawn in.  ``sample`` keeps the reference's
 block rule: an explicit ``batch`` is honored exactly, the default is
 ``min(sample_batch, n)``.
+
+``TableCodec.decode``/``decode_reference`` and the KDE and Random
+generators are the reference's numpy on the host, draw for draw, so a seed
+gives its bytes.  KDE moves the edge-sized arithmetic to its ``device``
+where the bytes stay IEEE-equal: the row gather and ``+ normal · bw`` in
+float64, cast to float32 after, and each category's bin search
+(``baselines.choice_indices``).  All three generators share::
+
+    gen = KDEFeatureGenerator(schema, device="cuda").fit(cont, cat)
+    cont_s, cat_s = gen.sample(rng, n)     # device float32 / int32
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch import random as trandom
+from repro_torch.core.baselines import choice_cdf, choice_indices
 from repro_torch.core.feature_engine import BatchedDecoder
 from repro_torch.tabular import vgm as vgm_mod
 from repro_torch.tabular.schema import TableSchema
@@ -49,9 +61,12 @@ class TableCodec:
         return self
 
     @property
+    def cont_widths(self) -> List[int]:
+        return [1 + self.n_modes] * self.schema.n_cont
+
+    @property
     def enc_dim(self) -> int:
-        return (1 + self.n_modes) * self.schema.n_cont \
-            + sum(self.schema.cat_cards)
+        return sum(self.cont_widths) + sum(self.schema.cat_cards)
 
     def encode(self, cont: np.ndarray, cat: np.ndarray) -> np.ndarray:
         """(N, enc_dim) float32: per continuous column [α, mode one-hot],
@@ -65,9 +80,76 @@ class TableCodec:
             parts.append(np.eye(card, dtype=np.float32)[cat[:, j]])
         return np.concatenate(parts, 1) if parts else np.zeros((len(cont), 0))
 
+    def decode(self, raw: np.ndarray, rng: np.random.Generator
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host decode of activated generator output ``raw`` (α in
+        [-1, 1], mode / category probabilities): one inverse-CDF draw per
+        row and group (:func:`_sample_rows`), in column order."""
+        n = raw.shape[0]
+        cont = np.zeros((n, self.schema.n_cont), np.float32)
+        cat = np.zeros((n, self.schema.n_cat), np.int32)
+        off = 0
+        for j, p in enumerate(self.vgms):
+            alpha = raw[:, off]
+            probs = raw[:, off + 1: off + 1 + self.n_modes]
+            probs = np.where(p.active[None], np.maximum(probs, 1e-9), 0)
+            mode = _sample_rows(probs, rng)
+            cont[:, j] = _inverse(p, mode, np.clip(alpha, -1, 1))
+            off += 1 + self.n_modes
+        for j, card in enumerate(self.schema.cat_cards):
+            probs = np.maximum(raw[:, off: off + card], 1e-9)
+            cat[:, j] = _sample_rows(probs, rng)
+            off += card
+        return cont, cat
+
+    def decode_reference(self, raw: np.ndarray, rng: np.random.Generator
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """The per-row decode (an ``rng.choice`` a row for modes, one
+        ``rng.random`` column for categories): the baseline the vectorized
+        decode and the engine are held against; not a hot path."""
+        n = raw.shape[0]
+        cont = np.zeros((n, self.schema.n_cont), np.float32)
+        cat = np.zeros((n, self.schema.n_cat), np.int32)
+        off = 0
+        for j, p in enumerate(self.vgms):
+            alpha = raw[:, off]
+            probs = raw[:, off + 1: off + 1 + self.n_modes]
+            probs = np.where(p.active[None], np.maximum(probs, 1e-9), 0)
+            probs = probs / probs.sum(1, keepdims=True)
+            mode = np.array([rng.choice(self.n_modes, p=pr) for pr in probs])
+            cont[:, j] = _inverse(p, mode, np.clip(alpha, -1, 1))
+            off += 1 + self.n_modes
+        for j, card in enumerate(self.schema.cat_cards):
+            probs = np.maximum(raw[:, off: off + card], 1e-9)
+            probs = probs / probs.sum(1, keepdims=True)
+            cdf = probs.cumsum(1)
+            u = rng.random((n, 1))
+            cat[:, j] = np.minimum((u > cdf).sum(1), card - 1)
+            off += card
+        return cont, cat
+
     def batched(self, batch: int = 1 << 16, device="cuda") -> BatchedDecoder:
         return BatchedDecoder(self.schema, self.vgms, self.n_modes, batch,
                               device)
+
+
+def _inverse(p: vgm_mod.VGMParams, mode: np.ndarray, alpha: np.ndarray
+             ) -> np.ndarray:
+    """``vgm.inverse`` on host arrays (float64 arithmetic, float32 out)."""
+    return vgm_mod.inverse(p, torch.from_numpy(np.asarray(mode, np.int64)),
+                           torch.from_numpy(np.asarray(alpha))).numpy()
+
+
+def _sample_rows(probs: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """One categorical draw per row, vectorized inverse-CDF.
+
+    ``u`` is scaled by each row's total mass instead of normalizing the
+    row, so float rounding in the cumsum can never push the draw past the
+    last bin; the final clip guards it all the same."""
+    cdf = probs.cumsum(1, dtype=np.float64)
+    u = rng.random(len(probs)) * cdf[:, -1]
+    k = (u[:, None] >= cdf).sum(1)
+    return np.minimum(k, probs.shape[1] - 1)
 
 
 class Dense(nn.Module):
@@ -384,3 +466,96 @@ class _Adam:
             m.copy_(self.b1 * m + self.one_b1 * g)
             v.copy_(self.b2 * v + self.one_b2 * g * g)
             p.copy_(p - self.lr * (m / c1) / (torch.sqrt(v / c2) + self.eps))
+
+
+class KDEFeatureGenerator:
+    """Per-column Gaussian KDE for continuous columns (Silverman's or a
+    fixed bandwidth), empirical frequencies for categorical ones."""
+
+    #: numpy draws, no engine batch: the dataset manifest pins no batch,
+    #: device or stream for it
+    engine_batched = False
+
+    def __init__(self, schema: TableSchema,
+                 bandwidth: Optional[float] = None, device="cuda"):
+        self.schema = schema
+        self.bandwidth = bandwidth
+        self.device = torch.device(device)
+        self.cont_data: Optional[np.ndarray] = None
+        self.cat_probs: List[np.ndarray] = []
+
+    def fit(self, cont: np.ndarray, cat: np.ndarray, **_
+            ) -> "KDEFeatureGenerator":
+        """The reference's fit on the host; the table, the bandwidths
+        (float64) and the category cdfs are then copied to the device."""
+        cont, cat = np.asarray(cont), np.asarray(cat)
+        self.cont_data = np.asarray(cont, np.float32)
+        n = max(len(cont), 1)
+        if self.bandwidth is None:
+            # Silverman per column
+            self.bw = 1.06 * cont.std(0) * n ** (-1 / 5) + 1e-6
+        else:
+            self.bw = np.full(self.schema.n_cont, self.bandwidth)
+        self.cat_probs = [np.bincount(cat[:, j], minlength=c) / n
+                          for j, c in enumerate(self.schema.cat_cards)]
+        dev = self.device
+        self._data = torch.from_numpy(self.cont_data).to(dev)
+        self._bw = torch.from_numpy(np.asarray(self.bw, np.float64)).to(dev)
+        self._cdfs = [torch.from_numpy(choice_cdf(p / p.sum())).to(dev)
+                      for p in self.cat_probs]
+        return self
+
+    def sample(self, rng: np.random.Generator, n: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``n`` rows: row indices, then standard normals, then each
+        category column's uniforms, drawn by ``rng`` as the reference
+        draws them; ``data[idx] + normal · bw`` in float64 on the device,
+        cast to float32."""
+        dev = self.device
+        idx = rng.integers(0, len(self.cont_data), size=n)
+        z = rng.normal(0, 1, (n, self.schema.n_cont))
+        rows = self._data[torch.from_numpy(idx).to(dev)].to(torch.float64)
+        cont = (rows + torch.from_numpy(z).to(dev) * self._bw[None]).to(
+            torch.float32)
+        if self._cdfs:
+            cat = torch.stack([choice_indices(cdf, rng.random(n))
+                               for cdf in self._cdfs], 1).to(torch.int32)
+        else:
+            cat = torch.zeros((n, 0), dtype=torch.int32, device=dev)
+        return cont, cat
+
+
+class RandomFeatureGenerator:
+    """Uniform within observed ranges (paper §4.1 'random'): the
+    reference's numpy draw on the host, moved to the device."""
+
+    #: numpy draws, no engine batch (see ``KDEFeatureGenerator``)
+    engine_batched = False
+
+    def __init__(self, schema: TableSchema, device="cuda"):
+        self.schema = schema
+        self.device = torch.device(device)
+
+    def fit(self, cont: np.ndarray, cat: np.ndarray, **_
+            ) -> "RandomFeatureGenerator":
+        cont = np.asarray(cont)
+        self.lo = cont.min(0) if cont.size else np.zeros(self.schema.n_cont)
+        self.hi = cont.max(0) if cont.size else np.ones(self.schema.n_cont)
+        return self
+
+    def sample(self, rng: np.random.Generator, n: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cont = rng.uniform(self.lo, self.hi,
+                           (n, self.schema.n_cont)).astype(np.float32)
+        cat = np.stack([rng.integers(0, c, size=n)
+                        for c in self.schema.cat_cards], 1).astype(np.int32) \
+            if self.schema.cat_cards else np.zeros((n, 0), np.int32)
+        return (torch.from_numpy(cont).to(self.device),
+                torch.from_numpy(cat).to(self.device))
+
+
+FEATURE_GENERATORS = {
+    "gan": GANFeatureGenerator,
+    "kde": KDEFeatureGenerator,
+    "random": RandomFeatureGenerator,
+}

@@ -18,11 +18,19 @@ or refits from a dataset on disk, one pass over its shards
 
     pipe = SyntheticGraphPipeline(noise=0.03).fit_streamed("/data/ds")
 
-The port fits the paper's default components: kronecker structure, GAN
-features and the GBDT (``"xgboost"``) or random aligner.  A fit gives the
-JAX package's structure and VGMs exactly and its GAN and forests to the
-tolerances stated in the tests; the same seed gives the reference's
-edges bit for bit and its features and alignment to stated tolerances.
+Component choices mirror the paper's ablation (Table 6):
+struct ∈ {kronecker, sbm, er}, features ∈ {gan, kde, random},
+aligner ∈ {xgboost, random}; each is built on the pipeline's device::
+
+    pipe = SyntheticGraphPipeline(struct="er", features="random",
+                                  aligner="random").fit(graph, cont, cat)
+
+A fit gives the JAX package's structure, VGMs, SBM/ER, KDE and Random
+state exactly and its GAN and forests to the tolerances stated in the
+tests; the same seed gives the reference's edges bit for bit (SBM and ER
+too), its KDE and Random rows bit for bit and its GAN features and GBDT
+alignment to stated tolerances.  Streamed fitting and generation take the
+kronecker structure only, as in the reference.
 """
 from __future__ import annotations
 
@@ -36,11 +44,13 @@ import torch
 from repro_torch import random as trandom
 from repro_torch.core import rmat
 from repro_torch.core.aligner import ALIGNERS, AlignerConfig, RandomAligner
+from repro_torch.core.baselines import ERGenerator, SBMGenerator
 from repro_torch.core.descend import default_id_dtype
-from repro_torch.core.features import GANFeatureGenerator
+from repro_torch.core.features import FEATURE_GENERATORS, GANFeatureGenerator
 from repro_torch.core.structure import KroneckerFit, fit_structure
 from repro_torch.graph.ops import Graph
 from repro_torch.tabular.schema import TableSchema, infer_schema
+from repro_torch.utils import call_with_optional_kwargs
 
 
 @dataclasses.dataclass
@@ -66,9 +76,9 @@ def _sync(device: torch.device) -> None:
 
 
 class SyntheticGraphPipeline:
-    """Components by name, as in the paper's ablation (Table 6); the port
-    fits struct="kronecker", features="gan" and aligner "xgboost" (or
-    "gbdt") or "random"."""
+    """Components by name, as in the paper's ablation (Table 6): struct
+    "kronecker", "sbm" or "er"; features "gan", "kde" or "random"; aligner
+    "xgboost" (or "gbdt") or "random"."""
 
     def __init__(self, struct: str = "kronecker", features: str = "gan",
                  aligner: str = "xgboost", noise: float = 0.0,
@@ -86,11 +96,19 @@ class SyntheticGraphPipeline:
         self.timings = PipelineTimings()
 
     @classmethod
-    def fitted(cls, struct: KroneckerFit, features: GANFeatureGenerator,
-               aligner, bipartite: bool, feature_kind: str = "edge",
-               device="cuda") -> "SyntheticGraphPipeline":
-        """A pipeline from fitted components (``repro_torch.convert``)."""
-        pipe = cls(aligner="random" if isinstance(aligner, RandomAligner)
+    def fitted(cls, struct, features, aligner, bipartite: bool,
+               feature_kind: str = "edge", device="cuda"
+               ) -> "SyntheticGraphPipeline":
+        """A pipeline from fitted components (``repro_torch.convert``, or
+        the ablation's fit-once-and-recompose): a ``KroneckerFit``,
+        ``SBMGenerator`` or ``ERGenerator``, one of ``FEATURE_GENERATORS``
+        and an aligner; the kinds are read off their types."""
+        struct_kind = {KroneckerFit: "kronecker", SBMGenerator: "sbm",
+                       ERGenerator: "er"}[type(struct)]
+        feat_kind = next(k for k, c in FEATURE_GENERATORS.items()
+                         if isinstance(features, c))
+        pipe = cls(struct=struct_kind, features=feat_kind,
+                   aligner="random" if isinstance(aligner, RandomAligner)
                    else "xgboost", feature_kind=feature_kind, device=device)
         pipe.struct, pipe.features, pipe.aligner = struct, features, aligner
         pipe.schema = features.schema
@@ -103,23 +121,26 @@ class SyntheticGraphPipeline:
         and its host feature table ``cont`` (E or N, n_cont) float32,
         ``cat`` int32.  Stage times land in ``self.timings``, each taken
         after a device synchronize."""
-        if self.struct_kind != "kronecker" or self.feat_kind != "gan":
-            raise NotImplementedError(
-                f"struct={self.struct_kind!r}, features={self.feat_kind!r}: "
-                "the port fits kronecker structure and GAN features; the "
-                "SBM/ER and KDE/random generators are ROADMAP A4")
         dev = self.device
         g = Graph(g.src.to(dev), g.dst.to(dev), g.n_src, g.n_dst,
                   g.bipartite)
         cont, cat = np.asarray(cont), np.asarray(cat)
         self.schema = infer_schema(cont, cat)
         t0 = time.time()
-        self.struct = fit_structure(g, noise=self.noise)
+        if self.struct_kind == "kronecker":
+            self.struct = fit_structure(g, noise=self.noise)
+        elif self.struct_kind == "sbm":
+            self.struct = SBMGenerator(device=dev).fit(g)
+        elif self.struct_kind == "er":
+            self.struct = ERGenerator(device=dev).fit(g)
+        else:
+            raise ValueError(self.struct_kind)
         _sync(dev)
         self.timings.fit_struct_s = time.time() - t0
 
         t0 = time.time()
-        self.features = GANFeatureGenerator(self.schema, device=dev).fit(
+        gen_cls = FEATURE_GENERATORS[self.feat_kind]
+        self.features = gen_cls(self.schema, device=dev).fit(
             cont, cat, steps=self.gan_steps)
         _sync(dev)
         self.timings.fit_feat_s = time.time() - t0
@@ -172,10 +193,6 @@ class SyntheticGraphPipeline:
         if self.struct_kind != "kronecker":
             raise ValueError("streamed fitting supports the kronecker "
                              f"structure generator, not {self.struct_kind}")
-        if self.feat_kind != "gan":
-            raise NotImplementedError(
-                f"features={self.feat_kind!r}: the port fits GAN features; "
-                "the KDE/random generators are ROADMAP A4")
         tracer = tracer if tracer is not None else NULL_TRACER
         dev = self.device
         t0 = time.time()
@@ -210,7 +227,8 @@ class SyntheticGraphPipeline:
             # zero-width tables carry nothing to learn: skip the GAN steps
             steps = self.gan_steps if (stats.n_cont + len(stats.cat_cards)) \
                 else 0
-            self.features = GANFeatureGenerator(self.schema, device=dev).fit(
+            gen_cls = FEATURE_GENERATORS[self.feat_kind]
+            self.features = gen_cls(self.schema, device=dev).fit(
                 cont_s, cat_s, steps=steps)
             _sync(dev)
         self.timings.fit_feat_s = time.time() - t0
@@ -238,36 +256,47 @@ class SyntheticGraphPipeline:
         """``backend`` picks the ``repro_torch.core.sampler`` backend
         (None/'auto' = by device); ``id_dtype`` widens node ids (auto
         int32/int64 by fit size); ``feature_batch`` fixes the feature
-        block size (None = the generator's default).  Stage times land in
-        ``self.timings``, each taken after a device synchronize."""
+        block size (None = the generator's default).  These three and
+        ``chunked``/``k_pref`` apply to kronecker structure; SBM and ER
+        draw ``scale_nodes`` times the nodes and ``scale_nodes**2`` (or,
+        not density-preserving, ``scale_nodes``) times the edges.  The
+        numpy rng is drawn from in the reference's order: structure,
+        features, aligner.  Stage times land in ``self.timings``, each
+        taken after a device synchronize."""
         dev = self.device
         rng = np.random.default_rng(seed)
-        key = trandom.PRNGKey(seed)
         t0 = time.time()
-        backend = "auto" if backend is None else backend
-        fit = self.struct.scaled(scale_nodes, density_preserving)
-        if id_dtype is None:
-            id_dtype = default_id_dtype(max(fit.n, fit.m))
-        if chunked:
-            src, dst = rmat.sample_graph_chunked(key, fit, k_pref, rng=rng,
-                                                 dtype=id_dtype,
-                                                 backend=backend, device=dev)
+        if self.struct_kind == "kronecker":
+            key = trandom.PRNGKey(seed)
+            backend = "auto" if backend is None else backend
+            fit = self.struct.scaled(scale_nodes, density_preserving)
+            if id_dtype is None:
+                id_dtype = default_id_dtype(max(fit.n, fit.m))
+            if chunked:
+                src, dst = rmat.sample_graph_chunked(
+                    key, fit, k_pref, rng=rng, dtype=id_dtype,
+                    backend=backend, device=dev)
+            else:
+                src, dst = rmat.sample_graph(key, fit, rng=rng,
+                                             dtype=id_dtype, backend=backend,
+                                             device=dev)
+            g = Graph(src, dst, 2 ** fit.n, 2 ** fit.m, self.bipartite)
         else:
-            src, dst = rmat.sample_graph(key, fit, rng=rng, dtype=id_dtype,
-                                         backend=backend, device=dev)
-        g = Graph(src, dst, 2 ** fit.n, 2 ** fit.m, self.bipartite)
+            se = scale_nodes ** 2 if density_preserving else scale_nodes
+            g = self.struct.sample(rng, scale_nodes, se)
         _sync(dev)
         self.timings.gen_struct_s = time.time() - t0
 
         t0 = time.time()
         n_rows = g.n_edges if self.feature_kind == "edge" else g.n_nodes
-        cont_s, cat_s = self.features.sample(rng, n_rows, batch=feature_batch)
+        cont_s, cat_s = call_with_optional_kwargs(
+            self.features.sample, rng, n_rows, batch=feature_batch)
         _sync(dev)
         self.timings.gen_feat_s = time.time() - t0
 
         t0 = time.time()
-        cont_s, cat_s = self.aligner.align(g, cont_s, cat_s, rng,
-                                           batch=feature_batch)
+        cont_s, cat_s = call_with_optional_kwargs(
+            self.aligner.align, g, cont_s, cat_s, rng, batch=feature_batch)
         _sync(dev)
         self.timings.gen_align_s = time.time() - t0
         return g, cont_s, cat_s

@@ -156,3 +156,18 @@ def sample_graph_chunked(key, fit: KroneckerFit, k_pref: int = 2,
         srcs.append(s)
         dsts.append(d)
     return torch.cat(srcs), torch.cat(dsts)
+
+
+# ---------------------------------------------------------------------------
+# Erdős–Rényi baseline (paper §4.1 'random')
+# ---------------------------------------------------------------------------
+
+def sample_erdos_renyi(key, n_src: int, n_dst: int, n_edges: int,
+                       device="cuda"):
+    """``n_edges`` uniform int32 edges on ``device``: ``k1, k2 =
+    split(key)``, then ``randint(k1, (n_edges,), 0, n_src)`` and
+    ``randint(k2, ..., n_dst)`` — the JAX package's draws (its default
+    int32) bit for bit, for any bounds up to 2^31 − 1."""
+    k1, k2 = trandom.split(key)
+    return (trandom.randint(k1, (n_edges,), 0, n_src, device),
+            trandom.randint(k2, (n_edges,), 0, n_dst, device))

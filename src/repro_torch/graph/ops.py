@@ -9,10 +9,14 @@ with atomics in no fixed order, so two calls on one graph differed in the
 last bits, and those bits reach the aligner's rank matching; there the
 edges are sorted by destination once per graph (a stable sort) and each
 node's run is summed by ``segment_reduce``.  That sum is the same from
-run to run, but it associates in its own order, so the card agrees with
-the CPU's ``index_add_`` to a float tolerance, not bit for bit.  PageRank
-and Katz agree with the reference to a float tolerance too (XLA sums in
-its own order).
+run to run, but it associates in its own order.  So float32 values are
+summed in float64 and rounded once to float32 (PageRank's dangling mass
+too, and ``log1p`` of Katz is taken in float64): the card's node features
+then equal the CPU's, short of a float64 sum that lands within float64
+rounding of a float32 tie.  That matters because the aligner's rank
+matching turns one moved GBDT prediction into many moved rows.  PageRank
+and Katz agree with the reference to a float tolerance (XLA sums float32
+in its own order).
 """
 from __future__ import annotations
 
@@ -116,7 +120,8 @@ class _EdgeSum:
     per-iteration sum of PageRank and Katz.  The CPU takes ``index_add_``
     in edge order; CUDA sorts the edges by ``dst`` once (stable) and sums
     each node's run with ``segment_reduce``, so repeated calls are
-    bit-equal (and equal the CPU's sums to a float tolerance)."""
+    bit-equal.  float32 values are summed in float64 and rounded once, so
+    the two devices' sums round to the same float32."""
 
     def __init__(self, src: torch.Tensor, dst: torch.Tensor, n: int):
         self.n = n
@@ -129,12 +134,15 @@ class _EdgeSum:
             self.src, self.dst, self.lengths = src, dst, None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        acc = torch.float64 if x.dtype == torch.float32 else x.dtype
+        xs = x[self.src].to(acc)
         if self.lengths is not None:
-            return torch.segment_reduce(x[self.src], "sum",
-                                        lengths=self.lengths, unsafe=True)
-        return torch.zeros(self.n, dtype=x.dtype,
-                           device=x.device).index_add_(0, self.dst,
-                                                       x[self.src])
+            out = torch.segment_reduce(xs, "sum", lengths=self.lengths,
+                                       unsafe=True)
+        else:
+            out = torch.zeros(self.n, dtype=acc,
+                              device=x.device).index_add_(0, self.dst, xs)
+        return out.to(x.dtype)
 
 
 def pagerank(g: Graph, n_iter: int = 20, damping: float = 0.85
@@ -156,8 +164,11 @@ def pagerank(g: Graph, n_iter: int = 20, damping: float = 0.85
     for _ in range(n_iter):
         contrib = r * inv
         r_new = edge_sum(contrib)
-        dangling = torch.sum(torch.where(deg == 0, r, 0.0))
-        r = (1 - damping) / n + damping * (r_new + dangling / n)
+        # the dangling mass over n in float64, rounded once (CUDA divides
+        # by a host scalar as a product with its reciprocal)
+        dangling = (torch.sum(torch.where(deg == 0, r, 0.0),
+                              dtype=torch.float64) / n).to(torch.float32)
+        r = (1 - damping) / n + damping * (r_new + dangling)
     return r
 
 
@@ -194,7 +205,9 @@ def node_features(g: Graph, n_pr_iter: int = 20) -> torch.Tensor:
     else:
         od, idg = out_degrees(g), in_degrees(g)
     return torch.stack([od.to(torch.float32), idg.to(torch.float32),
-                        pr * pr.shape[0], torch.log1p(kz)], dim=1)
+                        pr * pr.shape[0],
+                        torch.log1p(kz.to(torch.float64)).to(torch.float32)],
+                       dim=1)
 
 
 # ---------------------------------------------------------------------------

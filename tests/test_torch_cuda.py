@@ -17,7 +17,10 @@ fit's accumulators on the card equal the CPU's exactly (the reservoir's
 int64 hash is numpy's uint64 ``_mix64``), and so does its fit JSON.  The
 fidelity scores and graph statistics on the card equal the CPU's
 (integers exactly, floats within 1e-9 relative), and a GCN trained on the
-card follows the CPU's losses within 1e-4."""
+card follows the CPU's losses within 1e-4.  The baseline generators (ER
+and SBM ids, KDE and Random rows, ``sample_erdos_renyi``) give the CPU's
+bytes exactly: the same numpy draws, integer work and IEEE float64
+arithmetic on the card."""
 import numpy as np
 import pytest
 import torch
@@ -558,10 +561,8 @@ def test_dataset_on_card_equals_cpu(cuda, tmp_path):
 
 def test_node_features_are_bit_reproducible_on_card(cuda):
     """Two ``node_features`` calls on one graph are bit-equal on the card
-    (the edge sums no longer use atomics), and within 1e-4 of the CPU's:
-    the card's segment sums associate their adds otherwise than the
-    CPU's ``index_add_``, and 20 PageRank rounds carry that into the
-    fifth digit (2.1e-5 relative on a 1 M-edge graph, H100)."""
+    (the edge sums no longer use atomics), and within 1e-4 of the CPU's
+    (``test_node_features_on_card_equal_cpu`` holds them equal)."""
     from repro_torch.graph import ops as gops
     gen = torch.Generator().manual_seed(0)
     src = (torch.rand(1 << 20, generator=gen) ** 3 * 5000).to(torch.int32)
@@ -572,6 +573,25 @@ def test_node_features_are_bit_reproducible_on_card(cuda):
     c = gops.node_features(gops.Graph(src, dst, 5000, 3000, True))
     torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-5,
                                equal_nan=True)
+
+
+@pytest.mark.parametrize("bipartite", [True, False])
+def test_node_features_on_card_equal_cpu(cuda, bipartite):
+    """``node_features`` on the card equal the CPU's bit for bit: the
+    edge sums and PageRank's dangling mass are float64 rounded once to
+    float32, and Katz's ``log1p`` is taken in float64, so the two
+    devices' orders of addition and math libraries round alike.  The GBDT
+    aligner's rank matching moves many rows for one moved prediction, so
+    this is what keeps aligned rows equal on card and CPU at scale."""
+    from repro_torch.graph import ops as gops
+    gen = torch.Generator().manual_seed(1)
+    n_src, n_dst = (5000, 3000) if bipartite else (6000, 6000)
+    src = (torch.rand(1 << 20, generator=gen) ** 3 * n_src).to(torch.int32)
+    dst = (torch.rand(1 << 20, generator=gen) ** 2 * n_dst).to(torch.int32)
+    a = gops.node_features(gops.Graph(src.to(cuda), dst.to(cuda), n_src,
+                                      n_dst, bipartite))
+    b = gops.node_features(gops.Graph(src, dst, n_src, n_dst, bipartite))
+    assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
 
 
 def test_reservoir_hash_on_card_is_uint64_mix64(cuda):
@@ -725,3 +745,61 @@ def test_gcn_loss_on_card_close_to_cpu(cuda):
                                atol=1e-4)
     np.testing.assert_array_equal(runs["card"][2], runs["card2"][2])
     assert abs(runs["card"][1] - runs["cpu"][1]) <= 0.01
+
+
+# -- the baseline generators --------------------------------------------------
+
+def _baseline_graph():
+    from repro_torch.data.reference import tabformer_like
+    return tabformer_like(n_src=512, n_dst=64, n_edges=4000)
+
+
+@pytest.mark.parametrize("kind", ["er", "sbm-powerlaw", "sbm-empirical"])
+@pytest.mark.parametrize("scale", [1, 4])
+def test_baseline_ids_on_card_equal_cpu(cuda, kind, scale):
+    from repro_torch.core.baselines import ERGenerator, SBMGenerator
+    from repro_torch.graph.ops import Graph
+    g, _, _ = _baseline_graph()
+    out = []
+    for dev in ("cpu", cuda):
+        gd = Graph(g.src.to(dev), g.dst.to(dev), g.n_src, g.n_dst,
+                   g.bipartite)
+        gen = (ERGenerator(device=dev) if kind == "er" else SBMGenerator(
+            degree_mode=kind.split("-")[1], device=dev)).fit(gd)
+        out.append(gen.sample(np.random.default_rng(3), scale))
+    want, got = out
+    assert got.src.is_cuda and got.src.dtype == torch.int32
+    assert torch.equal(got.src.cpu(), want.src)
+    assert torch.equal(got.dst.cpu(), want.dst)
+
+
+@pytest.mark.parametrize("kind,bandwidth", [("kde", None), ("kde", 0.3),
+                                            ("random", None)])
+def test_baseline_features_on_card_equal_cpu(cuda, kind, bandwidth):
+    from repro_torch.core.features import (KDEFeatureGenerator,
+                                           RandomFeatureGenerator)
+    from repro_torch.tabular.schema import infer_schema
+    _, cont, cat = _baseline_graph()
+    schema = infer_schema(cont, cat)
+    out = []
+    for dev in ("cpu", cuda):
+        gen = (KDEFeatureGenerator(schema, bandwidth, device=dev)
+               if kind == "kde" else RandomFeatureGenerator(schema, dev))
+        out.append(gen.fit(cont, cat).sample(np.random.default_rng(5),
+                                             100_003))
+    (wc, wk), (c, k) = out
+    assert c.is_cuda and c.dtype == torch.float32 and k.dtype == torch.int32
+    assert torch.equal(c.cpu().view(torch.int32), wc.view(torch.int32))
+    assert torch.equal(k.cpu(), wk)
+
+
+@pytest.mark.parametrize("n_src,n_dst,n_edges", [(1 << 20, 1 << 20, 1 << 20),
+                                                 (1000, 37, 99_999)])
+def test_erdos_renyi_on_card_equals_cpu(cuda, n_src, n_dst, n_edges):
+    from repro_torch.core.rmat import sample_erdos_renyi
+    s, d = sample_erdos_renyi(tr.PRNGKey(4), n_src, n_dst, n_edges,
+                              device=cuda)
+    ws, wd = sample_erdos_renyi(tr.PRNGKey(4), n_src, n_dst, n_edges,
+                                device="cpu")
+    assert s.is_cuda and s.dtype == torch.int32
+    assert torch.equal(s.cpu(), ws) and torch.equal(d.cpu(), wd)

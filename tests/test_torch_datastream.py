@@ -393,7 +393,7 @@ def test_executor_variants_are_byte_identical(tmp_path, spec, serial_feat,
     meta = ds.manifest.features
     assert meta == {"n_cont": 2, "cat_cards": [3], "batch": 1000,
                     "device": "cpu", "generator_stream": "torch-gan-v1",
-                    "aligner_stream": "torch-gbdt-v1"}
+                    "aligner_stream": "torch-gbdt-v2"}
     for blk in ds:
         assert blk.cont.dtype == np.float32 and blk.cont.shape == \
             (blk.n_edges, 2)
@@ -838,7 +838,7 @@ def test_cli_writes_the_assets_features(tmp_path):
     assert "features=yes" in r.stderr and "verify: ok" in r.stderr
     ds = ShardedGraphDataset(out)
     assert ds.total_edges == 20_000 and ds.has_features
-    assert ds.manifest.features["aligner_stream"] == "torch-gbdt-v1"
+    assert ds.manifest.features["aligner_stream"] == "torch-gbdt-v2"
     assert ds.manifest.executor["fused"] is True
     c, k = ds.features()
     assert c.shape == (20_000, 2) and k.shape == (20_000, 3)

@@ -420,9 +420,44 @@ def test_whole_fit_state_matches_reference(fitted):
                                 dict(features="kde"),
                                 dict(features="random")])
 def test_fit_of_unported_components_raises(table, kw):
-    _, (tg, cont, cat) = table
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A4"):
-        SyntheticGraphPipeline(device="cpu", **kw).fit(tg, cont, cat)
+    """The baseline components, which the port's fit once refused, fit as
+    the JAX package's do: the component's state equal, and ``generate``
+    from one seed gives the reference's ids and rows byte for byte (the
+    other components random, so no GAN or GBDT float sums enter)."""
+    _require_partitionable()
+    (g, jcont, jcat), (tg, cont, cat) = table
+    kw = dict(dict(features="random", aligner="random", noise=0.03), **kw)
+    jpipe = JPipeline(**kw).fit(g, jcont, jcat)
+    pipe = SyntheticGraphPipeline(device="cpu", **kw).fit(tg, cont, cat)
+    if kw.get("struct") == "sbm":
+        for f in ("block_mass", "src_blocks", "dst_blocks", "src_deg_w",
+                  "dst_deg_w"):
+            np.testing.assert_array_equal(getattr(pipe.struct.fitres, f),
+                                          getattr(jpipe.struct.fitres, f))
+    elif kw.get("struct") == "er":
+        assert (pipe.struct.n_src, pipe.struct.n_dst, pipe.struct.E,
+                pipe.struct.bipartite) == (jpipe.struct.n_src,
+                                           jpipe.struct.n_dst, jpipe.struct.E,
+                                           jpipe.struct.bipartite)
+    else:
+        assert dataclasses.asdict(pipe.struct) == \
+            dataclasses.asdict(jpipe.struct)
+    if kw["features"] == "kde":
+        np.testing.assert_array_equal(pipe.features.bw, jpipe.features.bw)
+        for a, b in zip(pipe.features.cat_probs, jpipe.features.cat_probs):
+            np.testing.assert_array_equal(a, b)
+    else:
+        np.testing.assert_array_equal(pipe.features.lo, jpipe.features.lo)
+        np.testing.assert_array_equal(pipe.features.hi, jpipe.features.hi)
+    g1, c1, k1 = jpipe.generate(seed=2, scale_nodes=2)
+    g2, c2, k2 = pipe.generate(seed=2, scale_nodes=2)
+    np.testing.assert_array_equal(g2.src.numpy(), np.asarray(g1.src))
+    np.testing.assert_array_equal(g2.dst.numpy(), np.asarray(g1.dst))
+    np.testing.assert_array_equal(c2.numpy().view(np.int32),
+                                  np.asarray(c1).view(np.int32))
+    np.testing.assert_array_equal(k2.numpy(), np.asarray(k1))
+    with pytest.raises(ValueError, match="kronecker"):
+        convert.state_from_pipeline(pipe)
 
 
 def test_random_aligner_fit_generates(table):

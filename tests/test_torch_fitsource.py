@@ -305,13 +305,45 @@ def test_fit_streamed_from_stats_equals_dataset(dirs):
 @pytest.mark.parametrize("kw,err,match", [
     (dict(struct="sbm"), ValueError, "kronecker"),
     (dict(struct="er"), ValueError, "kronecker"),
-    (dict(features="kde"), NotImplementedError, r"ROADMAP A4"),
-    (dict(features="random"), NotImplementedError, r"ROADMAP A4"),
 ])
 def test_fit_streamed_refuses_unported_components(dirs, kw, err, match):
+    """SBM and ER structures do not fit from a stream, as in the
+    reference."""
     with pytest.raises(err, match=match):
         SyntheticGraphPipeline(device="cpu", **kw).fit_streamed(
             dirs["struct"])
+    with pytest.raises(err, match=match):
+        JPipeline(**kw).fit_streamed(dirs["struct"])
+
+
+@pytest.mark.parametrize("features", ["kde", "random"])
+def test_fit_streamed_baseline_features_match_reference(dirs, features):
+    """KDE and random features fit from the featured dataset's row sample
+    as the JAX package's do: the structure's fit JSON and the generator's
+    state equal, and a draw from one seed the same bytes."""
+    kw = dict(features=features, aligner="random", noise=0.03)
+    fkw = dict(sample_rows=500, kmax=KMAX, calibrate=False)
+    jpipe = JPipeline(**kw).fit_streamed(dirs["feat"], **fkw)
+    pipe = SyntheticGraphPipeline(device="cpu", **kw).fit_streamed(
+        dirs["feat"], **fkw)
+    assert fe.fit_to_json(pipe.struct, pipe.fit_provenance) == \
+        jfe.fit_to_json(jpipe.struct, jpipe.fit_provenance)
+    assert (pipe.schema.n_cont, pipe.schema.cat_cards) == (
+        jpipe.schema.n_cont, tuple(jpipe.schema.cat_cards))
+    gen, jgen = pipe.features, jpipe.features
+    if features == "kde":
+        np.testing.assert_array_equal(gen.cont_data, jgen.cont_data)
+        np.testing.assert_array_equal(gen.bw, jgen.bw)
+        for a, b in zip(gen.cat_probs, jgen.cat_probs):
+            np.testing.assert_array_equal(a, b)
+    else:
+        np.testing.assert_array_equal(gen.lo, jgen.lo)
+        np.testing.assert_array_equal(gen.hi, jgen.hi)
+    jc, jk = jgen.sample(np.random.default_rng(3), 1000)
+    c, k = gen.sample(np.random.default_rng(3), 1000)
+    np.testing.assert_array_equal(c.numpy().view(np.int32),
+                                  jc.view(np.int32))
+    np.testing.assert_array_equal(k.numpy(), jk)
 
 
 # -- the CLI -----------------------------------------------------------------
