@@ -7,8 +7,9 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per library, all at once) and drives the port's paths on the card:
 graph generation (phases 2-7), fitting (phase 4b), writing datasets to
 disk (phase 13), scoring what it generates (phase 14), the paper's
-baselines (phase 15), the dense LM's scoring forward and serving engine
-(phases 8-10) and the toolchain probes S1-S4 (phase 12):
+baselines (phase 15), the paper's benchmark tables (phase 16), the dense
+LM's scoring forward and serving engine (phases 8-10) and the toolchain
+probes S1-S4 (phase 12):
 
 1. build the kernels; print the card's name and power limit; read the
    built SASS: the in-register R-MAT kernel's level loop, and the
@@ -97,15 +98,14 @@ baselines (phase 15), the dense LM's scoring forward and serving engine
     θ on the card, and K2 its plain version on the largest chunk; the
     run's stage times, edges/s to disk and bytes on disk are logged, and
     K2's row of the ``kernels`` line carries its ``streamed_launches``.
-    The same job is then pumped one chunk a group and grouped again
-    (timed beside the first run; each must write its shards, crcs equal).
     (b) Struct only at ``scale_nodes=4``: the card's dataset through
     ``cuda_prng`` equals the CPU's through ``cuda_bits``'s plain version,
     files and manifest. (c) GAN features and the GBDT aligner at
     ``scale_nodes=16`` (10 240 000 edges, shards of 2^21): serial,
     pipelined (depth 2, 2 host workers), pipelined and fused, and
     ``python -m repro_torch.scripts.generate_dataset`` SIGKILLed once its
-    journal holds a record and then ``--resume``d, all byte-identical;
+    journal holds a record and then ``--resume``d with ``--trace`` (its
+    event log kept for phase 16), all byte-identical;
     each run's stage busy seconds, overlap, stall and edges/s logged.
     (d) Refit (``phase_refit``): ``python -m
     repro_torch.scripts.fit_dataset --check-theta 0.07`` over (a)'s
@@ -172,15 +172,29 @@ baselines (phase 15), the dense LM's scoring forward and serving engine
     against its plain stream on the kronecker rows; (b) Table 2's
     ``random`` (ER + random + random, fitted on the card), ``graphworld``
     (SBM + 4b's GAN + random aligner, SBM's host and card seconds) and
-    ``ours`` (the asset) at ×16, stage times and ``evaluate_all``; (c)
+    ``ours`` (the asset) at ×4, stage times and ``evaluate_all``; (c)
     ``ERGenerator`` at ×64 (163 840 000 edges) and
     ``sample_erdos_renyi`` on 2^20 × 2^20 nodes at Table 8's 2^20, 2^23
-    and 2^25 edges, warm, edges/s, equal to the CPU's at 2^23; (d) a KDE
+    and 2^25 edges, warm, edges/s, equal to the CPU's at 2^20; (d) a KDE
     + random-aligner dataset at ×4 by ``DatasetJob`` (3 shards), card =
     CPU file for file, its manifest's ``features`` only ``n_cont`` and
     ``cat_cards``, a deleted shard resumed to the same bytes.  K2's
     launches on (a)-(b) and its error are its ``baselines_path_*``
     fields; the phase's wall is logged beside ``BASE_BUDGET_S``.
+16. benchmarks (run after phase 13): the tables of
+    ``python -m repro_torch.benchmarks.run`` at their fast sizes, each
+    through the runner's ``run_table``, but Table 2, 5 and 6
+    (``BENCH_SKIP``: phases 4, 14 and 15 drive their paths); every
+    table's row names (``BENCH_ROWS``) or result keys (``BENCH_KEYS``) and
+    finite numbers; Fig. 8 times ``reference``, ``cuda_bits`` (K1) and
+    ``cuda_prng`` (K2), each at most its H100 bound, and their ids for
+    Fig. 8's key and sizes equal the plain version of the stream on the
+    CPU; every ``BENCH_*.json`` names the card and its power limit;
+    ``report_run`` and ``obs.export`` read phase 13(c)'s traced CLI run (a
+    stage breakdown, a Chrome trace with at least two thread lanes).  K1's
+    and K2's launches over the tables (counters reset first) and their
+    error are their ``bench_path_*`` fields; the wall is logged beside
+    ``BENCH_BUDGET_S``.
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
 ``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
@@ -207,24 +221,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ASSET = ROOT / "src" / "repro_torch" / "assets" / "tabformer_like_fit.npz"
 
-#: H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 bytes/s;
-#: SM clocks/s (132 SMs at the 1.98 GHz boost clock); per SM and clock,
-#: 64 lanes of the integer (alu) pipe, the only pipe that runs shifts and
-#: logic ops, and 64 of the FMA-heavy pipe, which runs integer adds too
-#: (as IMAD.IADD)
-HBM_BYTES_PER_S = 3.35e12
-SM_CLOCKS_PER_S = 132 * 1.98e9
-ALU_LANES, FMA_HEAVY_LANES = 64, 64
-#: 32-bit integer operations one level of the in-register kernel cannot
-#: do without, per edge.  threefry2x32 does 20 rotations (one funnel shift
-#: each) and 21 xors (one per round, one to join its two words): 41 that
-#: only the alu pipe runs.  Its adds: 20 rounds, the five key injections
-#: into x1, the last into x0 and x1's first key add (x0's other key adds
-#: fold into three-input round adds): 27, which either pipe runs.  The
-#: descend's compares and id updates are left out, so the bound stays a
-#: lower bound.  ``sass_level_loop`` reads what the compiler emitted.
-PRNG_ALU_OPS_PER_LEVEL = 41
-PRNG_INT_OPS_PER_LEVEL = 41 + 27
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the H100's peaks and the kernels' bounds (one definition, shared
+    # with repro_torch.benchmarks); the card's name and power limit
+    from repro_torch.kernels.bounds import (
+        HBM_BYTES_PER_S, PEAK_FLOPS, PRNG_ALU_OPS_PER_LEVEL,
+        PRNG_INT_OPS_PER_LEVEL, flash_bound_s, prng_bound_s,
+        prng_kernel_bound_s)
+    from repro_torch.obs.metrics import gpu_line as nvidia_smi_line
+except ImportError as e:
+    print(f"chip_smoke: run it from a checkout of the repository ({e})",
+          file=sys.stderr)
+    sys.exit(1)
 
 #: kernel shape of the scale-64 struct drawn unchunked (n=18, m=15), with
 #: the demo θ; the main path itself draws 16 chunks of n=16, m=13
@@ -233,39 +242,10 @@ K_PREF = 2                              # generate()'s default chunking
 DEMO_THETA = [0.45, 0.22, 0.2, 0.13]    # scripts/generate_dataset.py demo
 
 
-#: H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores and
-#: float32 on the FMA pipes; flash attention's bound is taken at the rate
-#: of its input type
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-
 #: the scoring path's attention shape: tinyllama-1.1b (32 heads, 4 kv
 #: heads, head dim 64) at B = 4, S = 2048, folded as the layer folds it
 LM_ARCH, LM_B, LM_S = "tinyllama-1.1b", 4, 2048
 FLASH_PATH = dict(hq=LM_B * 32, hkv=LM_B * 4, s=LM_S, d=64)
-
-
-def flash_bound_s(hq: int, hkv: int, s: int, t: int, d: int, causal: bool,
-                  dtype: str) -> tuple:
-    """Least time for flash attention's work and its limiter: useful
-    FLOP (QKᵀ and PV, 2 each per multiply-add; causal counts the
-    S(S+1)/2 unmasked pairs) over the type's peak, against q + o + k + v
-    bytes over HBM.  At the path's bf16 shape: 6.9e10 FLOP → 0.070 ms
-    against 75.5 MB → 0.023 ms, so operations bound it."""
-    pairs = s * (s + 1) // 2 if causal else s * t
-    flops = 4 * hq * d * pairs
-    nbytes = (2 * hq * s * d + 2 * hkv * t * d) * (2 if dtype == "bfloat16"
-                                                   else 4)
-    by_ops, by_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
-                                                              "bytes")
-
-
-def prng_bound_s(L: int, n_edges: int) -> float:
-    """Least time for K2's threefry work: each pipe's share at its rate,
-    the alu pipe alone for shifts and xors, both pipes for all of it."""
-    per_lane = max(PRNG_ALU_OPS_PER_LEVEL / ALU_LANES,
-                   PRNG_INT_OPS_PER_LEVEL / (ALU_LANES + FMA_HEAVY_LANES))
-    return L * n_edges * per_lane / SM_CLOCKS_PER_S
 
 
 def log(msg: str) -> None:
@@ -273,10 +253,9 @@ def log(msg: str) -> None:
 
 
 def gpu_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    line = nvidia_smi_line()
+    check(line is not None, "nvidia-smi gave no name and power limit")
+    return line
 
 
 def check(cond: bool, what: str) -> None:
@@ -1277,8 +1256,7 @@ def phase_timing(tr, ref, rs, torch, errs: dict, launches: dict,
             ("rmat_sample_prng",
              lambda: rs.rmat_sample_prng(key, th, n, m, E, pad),
              lambda: ref.rmat_prng_ref(key, th, n, m, E, pad),
-             max(prng_bound_s(L, E), 2 * 4 * E / HBM_BYTES_PER_S),
-             "operations")):
+             prng_kernel_bound_s(L, E), "operations")):
         plain_ms = cuda_ms(plain, 2)
         ms = cuda_ms(kern, 10)
         ms2 = cuda_ms(kern, 10)
@@ -1360,23 +1338,26 @@ def _n_groups(sched, ds_source) -> int:
         ds_source.PUMP_GROUP_EDGES)) for rec in sched.shards)
 
 
-def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch) -> dict:
+def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch,
+                     trace_out: str) -> dict:
     """Phase 13: ``DatasetJob`` writes the committed fit to disk.
 
     (a) struct only at ``scale_nodes=64`` (163 840 000 int32 edges, shards
     of 2^24, ``pipeline_depth=2``, the auto backend): K2 must launch (its
     counter reset first); the deep verify finds nothing; the shards in
     order equal ``sample_graph_chunked`` of the job's key, k_pref and θ on
-    the card; K2 equals its plain version on the largest chunk.  The
-    same job is then pumped one chunk a group and grouped again, timed
-    beside the first run; each writes its shards (manifest crcs equal).
+    the card; K2 equals its plain version on the largest chunk.  (A
+    rerun pumped one chunk a group went for the smoke's wall:
+    ``tests/test_torch_datastream.py::test_chunk_groups_keep_the_bytes``
+    holds those bytes on the CPU.)
     (b) struct only at ``scale_nodes=4``: the card's dataset (``cuda_prng``)
     equals the CPU's (``cuda_bits``'s plain version) file for file,
     manifest included.
     (c) GAN features and the GBDT aligner at ``scale_nodes=16`` (10 240 000
     edges, shards of 2^21): serial, pipelined (depth 2, 2 host workers),
     pipelined and fused, and the CLI killed (SIGKILL) once its journal
-    holds a record and then resumed, all byte-identical.
+    holds a record and then resumed, all byte-identical; the resumed run
+    writes its event log (``--trace``) to ``trace_out`` for phase 16.
     Returns K2's launches in (a), its max error and the run's numbers."""
     import os
     import shutil
@@ -1456,32 +1437,6 @@ def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch) -> dict:
                    wall_s=wall, edges_per_s=fit.E / wall, bytes=nbytes,
                    timings=dict(t), chunks=len(job.scheduler.chunks),
                    shards=len(job.scheduler.shards))
-        # the same job pumped one chunk a group (a host crossing per
-        # chunk), then grouped again: grouped, one, grouped in one
-        # process, so the two are timed side by side
-        group = ds_source.PUMP_GROUP_EDGES
-        ab = {}
-        for name, g in (("one chunk a group", 1), ("grouped again", group)):
-            p = os.path.join(work, "struct64-" + name.replace(" ", "-"))
-            jab = DatasetJob(fit, p, shard_edges=STREAM_SHARD, seed=0,
-                             pipeline_depth=2)
-            ds_source.PUMP_GROUP_EDGES = g
-            rs.reset_launches()
-            torch.cuda.synchronize()
-            try:
-                jab.run()
-            finally:
-                ds_source.PUMP_GROUP_EDGES = group
-            check(rs.LAUNCHES["rmat_sample_prng"] == len(jab.scheduler.chunks),
-                  f"{name}: K2 launched {rs.LAUNCHES['rmat_sample_prng']} "
-                  f"times for {len(jab.scheduler.chunks)} chunks")
-            check(_sans_executor(p) == _sans_executor(path),
-                  f"the {name} scale-64 dataset differs from the first")
-            ab[name] = dict(jab.timings)
-            log(_stage_line(f"datastream (a) {name}", jab.timings, fit.E)
-                + "; shards and crcs equal the first run's")
-            shutil.rmtree(p)
-        out.update(struct_ab=ab)
 
         # (b) the card against the CPU
         fit4 = pipe.struct.scaled(STREAM_CPU_SCALE)
@@ -1546,7 +1501,8 @@ def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch) -> dict:
         check(killed and at_kill < n_feat_shards,
               f"the CLI was not killed mid-run (killed={killed}, "
               f"{at_kill} of {n_feat_shards} shards journaled)")
-        r = subprocess.run(cmd + ["--resume", "--verify"], env=env,
+        r = subprocess.run(cmd + ["--resume", "--verify", "--trace",
+                                  trace_out], env=env,
                            capture_output=True, text=True, timeout=600)
         check(r.returncode == 0, f"the resumed CLI failed: "
               f"{r.stderr[-2000:]}")
@@ -1637,8 +1593,10 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
                 sampler, ref, rs, torch) -> dict:
     """Phase 13(d): the datasets of (a)-(c) fitted back on the card.
 
-    (a) ``python -m repro_torch.scripts.fit_dataset --check-theta 0.07``
-    over the ×64 dataset (2^20-row chunks): its fit JSON equal, byte for
+    (a) ``repro_torch.scripts.fit_dataset.main`` with ``--check-theta
+    0.07`` over the ×64 dataset (2^20-row chunks), called in this process
+    (a second interpreter took ~10 s more of the smoke's wall; phase
+    13(c) runs a CLI as its own process): its fit JSON equal, byte for
     byte, to ``REFIT64_JSON`` (which both packages reproduce on the CPU
     from its stats: the calibrated choice and θ are the JAX package's);
     its exit code 1 exactly when its θ check misses; the MLE within
@@ -1668,21 +1626,24 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
     from repro_torch.scripts.fit_dataset import generator_provenance
     out = {}
 
-    # (a) the CLI over the x64 dataset, then the shards reversed
+    # (a) the CLI's main over the x64 dataset, then the shards reversed
+    import contextlib
+    import io
+    from repro_torch.scripts import fit_dataset
     t_phase = time.time()
     fit_json = os.path.join(work, "refit64.json")
     metrics = os.path.join(work, "refit64.metrics.json")
     trace = os.path.join(work, "refit64.trace.jsonl")
-    cmd = [sys.executable, "-m", "repro_torch.scripts.fit_dataset",
-           "--dataset", path64, "--out", fit_json, "--check-theta",
-           str(REFIT_THETA_TOL), "--trace", trace, "--metrics-out", metrics]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = ["--dataset", path64, "--out", fit_json, "--check-theta",
+            str(REFIT_THETA_TOL), "--trace", trace, "--metrics-out", metrics]
+    err_text = io.StringIO()
     t0 = time.time()
-    r = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                       timeout=600)
+    with contextlib.redirect_stderr(err_text):
+        rc = fit_dataset.main(argv)
+    torch.cuda.synchronize()
     cli_wall = time.time() - t0
-    check(r.returncode in (0, 1) and os.path.exists(metrics),
-          f"fit_dataset failed: {r.stderr[-2000:]}")
+    check(rc in (0, 1) and os.path.exists(metrics),
+          f"fit_dataset failed: {err_text.getvalue()[-2000:]}")
     with open(fit_json) as f:
         text = f.read()
     with open(metrics) as f:
@@ -1692,12 +1653,13 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
     rate = m["rows"] / m["timings"]["accumulate_s"]
     met = m["theta_err"] <= REFIT_THETA_TOL
     log(f"refit (a): fit_dataset over the x64 dataset ({m['rows']} rows, "
-        f"{m['n_chunks']} chunks): process wall {cli_wall:.3f}s, "
+        f"{m['n_chunks']} chunks): call wall {cli_wall:.3f}s, "
         f"accumulate {m['timings']['accumulate_s']:.3f}s ({rate:.4g} "
         f"rows/s), θ-fit {m['timings']['theta_fit_s']:.3f}s; trace spans "
         f"(count, seconds) {spans}; chosen {prov['chosen']} of "
         f"{prov['calibration']}; " + " ".join(
-            ln for ln in r.stderr.splitlines() if ln.startswith("θ")))
+            ln for ln in err_text.getvalue().splitlines()
+            if ln.startswith("θ")))
     # the calibration ladder scores 200 000-edge samples against the
     # whole dataset's degree histograms; at the x64 density (~625 edges a
     # node) it chooses a skew candidate past the tolerance, and the JAX
@@ -1706,9 +1668,9 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
     pinned = text == REFIT64_JSON.read_text()
     log(f"refit (a): --check-theta {REFIT_THETA_TOL}: max|θ_fit − θ_gen| "
         f"{m['theta_err']:.5f}, {'met' if met else 'MISSED'}, exit code "
-        f"{r.returncode}; fit JSON equal to {REFIT64_JSON.name}: {pinned}")
+        f"{rc}; fit JSON equal to {REFIT64_JSON.name}: {pinned}")
     check(pinned, f"the x64 fit JSON differs from {REFIT64_JSON.name}")
-    check(r.returncode == (0 if met else 1),
+    check(rc == (0 if met else 1),
           "fit_dataset's exit code disagrees with its θ check")
     _theta_errs("refit (a)", prov, path64)
     n_shards = len(ShardedGraphDataset(path64))
@@ -1826,12 +1788,14 @@ def phase_refit(work: str, path64: str, path4: str, path16: str, tr, rmat,
 
 
 #: phase 15 (baselines): Table 6's grid at x4 (640 000 edges), Table 2's
-#: three methods at x16 (10 240 000 edges), ``ERGenerator`` at x64
-#: (163 840 000 edges) and ``sample_erdos_renyi`` at Table 8's full sizes
-#: on 2^20 x 2^20 nodes, whose ids at 2^23 edges the CPU draws too
-BASE_GRID_SCALE, BASE_T2_SCALE, BASE_ER_SCALE = 4, 16, 64
+#: three methods at x4 too (x16 until phase 16 pushed the smoke past 500
+#: s: 11.8-13.1 s of (b)), ``ERGenerator`` at x64 (163 840 000 edges) and
+#: ``sample_erdos_renyi`` at Table 8's full sizes on 2^20 x 2^20 nodes,
+#: whose ids at 2^20 edges the CPU draws too (2^23, 6.4 s of CPU
+#: threefry, until the same)
+BASE_GRID_SCALE, BASE_T2_SCALE, BASE_ER_SCALE = 4, 4, 64
 T8_NODES, T8_EDGES, T8_CPU_EDGES = 1 << 20, (1 << 20, 1 << 23, 1 << 25), \
-    1 << 23
+    1 << 20
 #: phase 15(a): the scale at which the GBDT-aligned KDE and random rows
 #: are drawn on the card and on the CPU and held to phase 4's criterion.
 #: x1, a depth cut for the phase's wall: (a) took 45.5 s with the six at
@@ -1892,13 +1856,13 @@ def phase_baselines(asset_pipe, fit_pipe, tr, rmat, sampler, ref, rs,
     the six
     GBDT-aligned KDE and random ones at ``BASE_GBDT_CPU_SCALE`` on both,
     aligned rows equal on ≥ 99%; K2 against its plain stream on the
-    kronecker rows.  (b) Table 2's three methods at x16, stage times and
+    kronecker rows.  (b) Table 2's three methods at x4, stage times and
     ``evaluate_all``: ``random`` (``fit`` of ER, random features and the
     random aligner on the card), ``graphworld`` (SBM with phase 4b's GAN
     and the random aligner; SBM's host and card seconds) and ``ours`` (the
     asset, ``chunked=True``, K2 held as in (a)).  (c) ``ERGenerator`` at
     x64; ``sample_erdos_renyi`` at Table 8's sizes, a warm call after a
-    warm-up each, and its ids at 2^23 edges equal to the CPU's.  (d) A
+    warm-up each, and its ids at 2^20 edges equal to the CPU's.  (d) A
     KDE + random-aligner dataset at x4 by ``DatasetJob`` on the card and
     on the CPU (``cuda_prng``'s plain version), every file equal, the
     manifest's ``features`` only ``n_cont`` and ``cat_cards``; one shard
@@ -2002,7 +1966,7 @@ def phase_baselines(asset_pipe, fit_pipe, tr, rmat, sampler, ref, rs,
     walls["a"] = time.time() - t_phase
     out["grid"] = grid
 
-    # (b) Table 2's three methods at x16
+    # (b) Table 2's three methods at BASE_T2_SCALE
     t_phase = time.time()
     methods = {
         "random": SyntheticGraphPipeline(
@@ -2113,6 +2077,182 @@ def phase_baselines(asset_pipe, fit_pipe, tr, rmat, sampler, ref, rs,
     walls["d"] = time.time() - t_phase
     out.update(walls=walls, launches=launches, err=err, card=gpu_line())
     return out
+
+
+#: phase 16 runs the runner's tables at their fast sizes, but these
+#: three: phases 4, 14 and 15 drive their paths through library calls,
+#: and each of their GAN fits takes ~10 s
+BENCH_SKIP = ("table2_quality", "table5_scale_metrics", "table6_ablation")
+#: phase 16's wall, seconds
+BENCH_BUDGET_S = 60.0
+#: the row names of the tables that return rows, at fast sizes
+BENCH_ROWS = {
+    "fig2_distributions": [f"fig2/{v}" for v in ("original", "ours",
+                                                  "random", "graphworld")],
+    "table3_scaling": [f"table3/scale{k}x" for k in (1, 2, 4)],
+    "table8_er_timings": [f"table8/er_{e}" for e in (1 << 18, 1 << 20,
+                                                      1 << 22)],
+    "table10_structural_stats": [f"table10/{v}" for v in (
+        "original", "ours_no_noise", "ours_noise", "rmat_default")],
+    "fig8_throughput": ["fig8/reference", "fig8/cuda_bits", "fig8/cuda_prng",
+                        "fig8/h100_kernel_bits_bound",
+                        "fig8/h100_kernel_prng_bound"],
+    "gnn_throughput": [f"gnn/{k}/{v}" for k in ("gcn", "gat")
+                       for v in ("original", "ours", "random")],
+}
+#: the result keys of the tables that return a dict
+BENCH_KEYS = {
+    "datastream_throughput": {"edges", "shard_edges", "overlap_speedup",
+                              "double_buffered", "serial"},
+    "feature_throughput": {"rows", "reference_rows", "batch", "decode",
+                           "gan_sample", "gbdt_predict", "align"},
+    "executor_overlap": {"edges", "shard_edges", "smoke", "configs",
+                         "serial_nofeat", "pipelined_nofeat",
+                         "speedup_nofeat", "serial_feat", "pipelined_feat",
+                         "speedup_feat", "fused_vs_staged", "write_path"},
+    "fit_throughput": {"rows", "shard_edges", "device", "streamed_fit",
+                       "inmemory_fit", "theta_delta", "slowdown",
+                       "bitpair_mle", "degree_sketch", "reservoir"},
+}
+
+
+def _finite_numbers(label: str, x) -> None:
+    """Every number in a table's result is finite."""
+    import math
+    if isinstance(x, dict):
+        for k, v in x.items():
+            _finite_numbers(f"{label}.{k}", v)
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        check(math.isfinite(x), f"{label} is {x}")
+
+
+def _row_fields(r: dict) -> dict:
+    """A row's derived ``k=v;...`` fields as numbers (a bound row's note
+    after its number dropped)."""
+    out = {}
+    for kv in r["derived"].split(";"):
+        k, v = kv.split("=", 1)
+        out[k] = float(v.split()[0])
+    return out
+
+
+def phase_benchmarks(trace_path: str, tr, sampler, rs, torch) -> dict:
+    """Phase 16: the benchmark tables (``repro_torch.benchmarks``) on the
+    card, each through the runner's ``run_table`` at its fast size, but
+    ``BENCH_SKIP``; K1 and K2 counted (reset first) over the tables.
+
+    Every table's rows carry the expected names (``BENCH_ROWS``) or
+    result keys (``BENCH_KEYS``) and finite numbers; Fig. 8 times all
+    three backends, each at most its H100 bound (a larger share would mean
+    a timed call did not end on the device); Fig. 8's ``cuda_bits`` and
+    ``cuda_prng`` ids for its key and sizes equal the plain version of
+    their stream on the CPU, and each other; every ``BENCH_*.json``
+    names the card and its power limit.  Then ``report_run`` and
+    ``obs.export`` read phase 13(c)'s traced CLI run: a stage breakdown,
+    and a Chrome trace with at least two thread lanes.  The tables write
+    into a temporary directory that is removed."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.benchmarks import fig8_throughput as fig8
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks.common import BENCH_DIR
+    from repro_torch.obs.sinks import load_events
+    from repro_torch.scripts import report_run
+
+    card = gpu_line()
+    work = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    cwd = os.getcwd()
+    walls, out = {}, {}
+    try:
+        os.chdir(work)
+        rs.reset_launches()
+        for name in bench_run.TABLES:
+            if name in BENCH_SKIP:
+                continue
+            t0 = time.time()
+            res = bench_run.run_table(name, True, "cuda")
+            torch.cuda.synchronize()
+            walls[name] = round(time.time() - t0, 2)
+            if name in BENCH_ROWS:
+                check([r["name"] for r in res] == BENCH_ROWS[name],
+                      f"{name}: rows {[r['name'] for r in res]}")
+                for r in res:
+                    _finite_numbers(r["name"], r["us_per_call"])
+                    _finite_numbers(r["name"], _row_fields(r))
+                out[name] = {r["name"]: [r["us_per_call"], r["derived"]]
+                             for r in res}
+            else:
+                check(set(res) == BENCH_KEYS[name],
+                      f"{name}: keys {sorted(res)}")
+                _finite_numbers(name, res)
+                out[name] = res
+        launches = {k: rs.LAUNCHES[k] for k in ("rmat_sample_bits",
+                                                "rmat_sample_prng")}
+        check(all(launches.values()),
+              f"benchmarks: a kernel never launched: {launches}")
+        for name in ("reference", "cuda_bits", "cuda_prng"):
+            f = _row_fields({"derived": out["fig8_throughput"][
+                f"fig8/{name}"][1]})
+            check(0 < f["of_bound"] <= 1.0,
+                  f"fig8/{name} at {f['of_bound']} of its H100 bound")
+
+        # the timed backends' ids: the plain version of their stream
+        th, L = fig8.thetas(), fig8.N_LEVELS
+        err = 0
+        for name in ("cuda_bits", "cuda_prng"):
+            E = fig8.E_FAST[name]
+            got = sampler.get_backend(name).sample(tr.PRNGKey(1), th, L, L,
+                                                   E, device="cuda")
+            want = sampler.get_backend("cuda_bits").sample(
+                tr.PRNGKey(1), th, L, L, E, device="cpu")
+            for a, b in zip(got, want):
+                err = max(err, int((a.cpu().to(torch.int64)
+                                    - b.to(torch.int64)).abs().max()))
+            if name == "cuda_bits":
+                other = sampler.get_backend("cuda_prng").sample(
+                    tr.PRNGKey(1), th, L, L, E, device="cuda")
+                check(all(torch.equal(a, b) for a, b in zip(got, other)),
+                      "fig8: cuda_prng's ids differ from cuda_bits'")
+        check(err == 0, f"fig8: the kernels' ids are {err} off the plain "
+              "version's")
+
+        envelopes = sorted(glob.glob(os.path.join(BENCH_DIR, "BENCH_*.json")))
+        limit = card.rsplit(",", 1)[1].strip()
+        for path in envelopes:
+            with open(path) as f:
+                env = json.load(f)["env"]
+            check(env["card"] == torch.cuda.get_device_name(0)
+                  and env["power_limit"] == limit,
+                  f"{os.path.basename(path)} names {env['card']!r}, "
+                  f"{env['power_limit']!r}, not {card!r}")
+        check(len(envelopes) == 5, f"envelopes: {envelopes}")
+
+        events = load_events(trace_path)
+        rep = report_run.summarize(events)
+        check(rep["n_spans"] > 0 and rep["wall_s"] > 0
+              and rep["stage_s"]["struct"] > 0 and rep["stage_s"]["write"] > 0,
+              f"report_run on the traced CLI run: {rep}")
+        chrome = os.path.join(work, "trace.chrome.json")
+        check(report_run.main([trace_path, "--perfetto", chrome]) == 0,
+              "report_run --perfetto")
+        with open(chrome) as f:
+            written = json.load(f)["traceEvents"]
+        lanes = sorted({e["args"]["name"] for e in written
+                        if e.get("name") == "thread_name"})
+        spans = {e["tid"] for e in written if e["ph"] == "X"}
+        check(len(lanes) >= 2 and len(spans) >= 2,
+              f"the Chrome trace has lanes {lanes}, spans on {spans}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return {"walls": walls, "wall": round(sum(walls.values()), 2),
+            "launches": launches, "err": err, "tables": out,
+            "report": {k: rep[k] for k in ("n_spans", "wall_s", "busy_s",
+                                           "overlap", "stage_s", "stall")},
+            "lanes": lanes, "envelopes": len(envelopes), "card": card}
 
 
 def attn_err(got, want) -> float:
@@ -2756,11 +2896,14 @@ def phase_probes(spike, ref, torch) -> list:
 
 
 def main() -> int:
+    import os
+    import shutil
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import convert, random as tr
     from repro_torch.configs import get_config
     from repro_torch.core import rmat, sampler
@@ -2864,11 +3007,23 @@ def main() -> int:
         errs[name] = max(errs[name], e)
     phase_struct_at_scale(tr, rmat, KroneckerFit, rs, torch)
     clock("5-7")
-    stream = phase_datastream(convert, tr, rmat, sampler, ref, rs, torch)
-    errs["rmat_sample_prng"] = max(errs["rmat_sample_prng"], stream["err"],
-                                   stream["refit"]["err"])
-    log("datastream: " + json.dumps(stream))
-    clock("13")
+    keep = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        trace_path = os.path.join(keep, "cli.trace.jsonl")
+        stream = phase_datastream(convert, tr, rmat, sampler, ref, rs, torch,
+                                  trace_path)
+        errs["rmat_sample_prng"] = max(errs["rmat_sample_prng"],
+                                       stream["err"], stream["refit"]["err"])
+        log("datastream: " + json.dumps(stream))
+        clock("13")
+        bench = phase_benchmarks(trace_path, tr, sampler, rs, torch)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    for name in ("rmat_sample_bits", "rmat_sample_prng"):
+        errs[name] = max(errs[name], bench["err"])
+    log(f"benchmarks: phase 16 wall {bench['wall']:.1f}s of its "
+        f"{BENCH_BUDGET_S:.0f}s budget; " + json.dumps(bench))
+    clock("16")
     model, params, launches["flash_attention"], e4 = phase_lm_scoring(
         tr, get_config, Model, transformer, fa, rs, ref, torch)
     errs["flash_attention"] = max(errs["flash_attention"], e4)
@@ -2889,6 +3044,10 @@ def main() -> int:
                     fidelity_path_max_abs_err=fidelity["err"],
                     baselines_path_launches=base["launches"],
                     baselines_path_max_abs_err=base["err"])
+    for row in rows:
+        if row["name"] in bench["launches"]:
+            row.update(bench_path_launches=bench["launches"][row["name"]],
+                       bench_path_max_abs_err=bench["err"])
     rows.append(phase_flash_timing(fa, ref, torch,
                                    launches["flash_attention"],
                                    errs["flash_attention"]))

@@ -103,27 +103,32 @@ def pipeline_from_state(state: State, device="cuda") -> SyntheticGraphPipeline:
     features = GANFeatureGenerator(schema, cfg, device=device, codec=codec,
                                    generator=gen)
 
+    return SyntheticGraphPipeline.fitted(
+        fit, features, aligner_from_state(state, schema, feature_kind,
+                                          device),
+        bool(state["pipe/bipartite"]), feature_kind, device)
+
+
+def aligner_from_state(state: State, schema: TableSchema, kind: str,
+                       device="cuda"):
+    """The ``aligner/*`` keys of a state → a fitted aligner on
+    ``device``."""
     if _str(state["aligner/kind"]) == "random":
-        aligner = RandomAligner(schema, kind=feature_kind)
-    else:
-        conts = [GBDTRegressor(packed=forest_from_state(
-            state, f"aligner/cont/{j}", device))
-            for j in range(schema.n_cont)]
-        cats = []
-        for j in range(schema.n_cat):
-            pk = forest_from_state(state, f"aligner/cat/{j}", device)
-            cats.append(None if pk is None else GBDTClassifier(
-                int(state[f"aligner/cat/{j}/n_classes"]), packed=pk))
-        aligner = GBDTAligner(
-            schema,
-            AlignerConfig(max_cat_classes=int(
-                state["aligner/max_cat_classes"])),
-            kind=feature_kind, cont_models=conts, cat_models=cats,
-            col_quality=[float(q) for q in
-                         np.atleast_1d(state["aligner/col_quality"])])
-    return SyntheticGraphPipeline.fitted(fit, features, aligner,
-                                         bool(state["pipe/bipartite"]),
-                                         feature_kind, device)
+        return RandomAligner(schema, kind=kind)
+    conts = [GBDTRegressor(packed=forest_from_state(
+        state, f"aligner/cont/{j}", device))
+        for j in range(schema.n_cont)]
+    cats = []
+    for j in range(schema.n_cat):
+        pk = forest_from_state(state, f"aligner/cat/{j}", device)
+        cats.append(None if pk is None else GBDTClassifier(
+            int(state[f"aligner/cat/{j}/n_classes"]), packed=pk))
+    return GBDTAligner(
+        schema,
+        AlignerConfig(max_cat_classes=int(state["aligner/max_cat_classes"])),
+        kind=kind, cont_models=conts, cat_models=cats,
+        col_quality=[float(q) for q in
+                     np.atleast_1d(state["aligner/col_quality"])])
 
 
 def _put_forest(out: State, prefix: str, pk: PackedForest,

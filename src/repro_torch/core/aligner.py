@@ -24,8 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.feature_engine import batched_rows
-from repro_torch.core.gbdt import GBDTClassifier, GBDTConfig, GBDTRegressor
+from repro_torch.core.gbdt import (GBDTClassifier, GBDTConfig, GBDTRegressor,
+                                   _by_row_blocks, _forest_scan_multi)
 from repro_torch.graph.ops import Graph, node_features
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.tabular.schema import TableSchema
 
 
@@ -159,6 +161,84 @@ class GBDTAligner:
             self.col_quality.append(max(0.0, acc - float(base)))
         return self
 
+    def predict(self, g: Graph, batch: Optional[int] = None
+                ) -> torch.Tensor:
+        """x̂ per edge/node: the predicted cont columns, then the class ids
+        of the modelled cat columns (see :meth:`predict_rows`)."""
+        return self.predict_rows(self._inputs(g), batch=batch)
+
+    def _packed_rows(self) -> Optional[dict]:
+        """Every forest behind :meth:`predict_rows` (the cont regressors,
+        then each classifier's class forests) stacked into one
+        ``(F, T, S)`` pack, so a row prediction quantizes X once and runs
+        one scan.  The forests of one fit share their bin grid and tree
+        shape; that is checked, and any mismatch gives None (the
+        per-column path).  It is built on each call, so it always follows
+        the current models."""
+        packs = [m.packed for m in self.cont_models]
+        cols = [("cont", j, 1) for j in range(len(packs))]
+        codes = [p.code[None] for p in packs]
+        leaves = [p.leaf_bot[None] for p in packs]
+        bases = [p.base.reshape(1) for p in packs]
+        off = len(packs)
+        for m in self.cat_models:
+            if m is None:
+                continue
+            pk = m.packed
+            packs.append(pk)
+            cols.append(("cat", off, m.n_classes))
+            codes.append(pk.code)
+            leaves.append(pk.leaf_bot)
+            bases.append(pk.base)
+            off += m.n_classes
+        p0 = packs[0] if packs else None
+        if p0 is None or not all(
+                torch.equal(p.E, p0.E) and p.code.shape[-2:]
+                == p0.code.shape[-2:] and (p.lr, p.depth)
+                == (p0.lr, p0.depth) for p in packs[1:]):
+            return None
+        return {"E": p0.E, "code": torch.cat(codes),
+                "leaf_bot": torch.cat(leaves), "base": torch.cat(bases),
+                "lr": torch.tensor(p0.lr, dtype=torch.float32,
+                                   device=p0.E.device),
+                "depth": p0.depth, "cols": cols}
+
+    def predict_rows(self, X, batch: Optional[int] = None) -> torch.Tensor:
+        """(n, columns) float32 predictions for the structural inputs
+        ``X``, on the models' device: one packed scan where the forests
+        share their grid, the per-column path otherwise; a categorical
+        column is the argmax of its class scores.  ``batch`` scores the
+        rows in zero-padded blocks of that many rows; per-row scores do
+        not depend on the blocks."""
+        models = self.cont_models + [m for m in self.cat_models
+                                     if m is not None]
+        n_cols = len(models)
+        X = torch.as_tensor(X).to(
+            device=models[0].packed.E.device if models else None,
+            dtype=torch.float32)
+        if not n_cols:
+            return torch.zeros((len(X), 1), dtype=torch.float32,
+                               device=X.device)
+        pk = self._packed_rows()
+        if pk is None:
+            return torch.stack([self._predict_col(X, ci, batch)
+                                for ci in range(n_cols)], 1)
+
+        def scan_all(blk):
+            return _forest_scan_multi(pk["code"], pk["leaf_bot"], blk,
+                                      pk["E"], pk["base"], pk["lr"],
+                                      pk["depth"])
+
+        tracer = self._tracer if self._tracer is not None else NULL_TRACER
+        with tracer.span("gbdt.scan", rows=int(X.shape[0]),
+                         forests=int(pk["code"].shape[0])):
+            scores = (batched_rows(scan_all, X, batch) if batch
+                      else _by_row_blocks(scan_all, X))
+        out = [scores[:, off] if kind == "cont"
+               else scores[:, off:off + width].argmax(1).to(torch.float32)
+               for kind, off, width in pk["cols"]]
+        return torch.stack(out, 1)
+
     def _col_costs(self) -> List[int]:
         """Forest count behind each column."""
         return ([1] * len(self.cont_models)
@@ -196,6 +276,18 @@ class GBDTAligner:
         included = [j for j, m in enumerate(self.cat_models) if m is not None]
         return cat_rows[:, included[ci - self.schema.n_cont]].to(
             torch.float32)
+
+    def _match_keys(self, pred, rows, rng: np.random.Generator
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-matrix form (benchmarks, tests): picks the primary and
+        secondary columns of ``pred`` and ``rows``, then
+        :meth:`_match_keys_cols`."""
+        pred, rows = torch.as_tensor(pred), torch.as_tensor(rows)
+        prim, sec = self._key_order()
+        q = self.col_quality[prim] if self.col_quality else 0.05
+        return self._match_keys_cols(
+            torch.stack([pred[:, prim], pred[:, sec]], 1),
+            torch.stack([rows[:, prim], rows[:, sec]], 1), rng, q)
 
     def _match_keys_cols(self, pred2: torch.Tensor, rows2: torch.Tensor,
                          rng: np.random.Generator, q: float
@@ -255,6 +347,31 @@ class GBDTAligner:
         perm = torch.empty(n, dtype=torch.int64, device=order_pred.device)
         perm[order_pred] = order_rows
         return cont_rows[:n][perm], cat_rows[:n][perm]
+
+    def _rows_matrix(self, cont_rows, cat_rows) -> torch.Tensor:
+        """Generated rows in :meth:`predict_rows`'s column order."""
+        cont_rows, cat_rows = (torch.as_tensor(cont_rows),
+                               torch.as_tensor(cat_rows))
+        cols = [cont_rows[:, j] for j in range(self.schema.n_cont)]
+        cols += [cat_rows[:, j].to(torch.float32)
+                 for j, mdl in enumerate(self.cat_models) if mdl is not None]
+        if not cols:
+            return torch.zeros((len(cont_rows), 1), dtype=torch.float32,
+                               device=cont_rows.device)
+        return torch.stack(cols, 1)
+
+    def similarity(self, pred, rows) -> torch.Tensor:
+        """Eq. 18/19: minus the squared distance of the cont columns, plus
+        the cosine of the cat columns."""
+        pred, rows = torch.as_tensor(pred), torch.as_tensor(rows)
+        nc = self.schema.n_cont
+        s = -((pred[:, :nc] - rows[:, :nc]) ** 2).sum(1)
+        if pred.shape[1] > nc:
+            a, b = pred[:, nc:], rows[:, nc:]
+            denom = (torch.linalg.vector_norm(a, dim=1)
+                     * torch.linalg.vector_norm(b, dim=1) + 1e-9)
+            s = s + (a * b).sum(1) / denom
+        return s
 
 
 class RandomAligner:

@@ -1,10 +1,11 @@
 """Histogram gradient-boosted trees — the aligner's predictor R.
 
 The paper uses XGBoost with lr=0.1, max_depth=5, 100 estimators,
-alpha=10.  Fitting is the JAX package's numpy histogram-tree fit, moved
-as is (``_fit_tree``: squared loss, quantile bins, XGBoost's L1/L2 leaf
-shrinkage ``w = -sign(G)·max(|G|-α, 0) / (H + λ)``), so the same inputs
-give the same trees.  A fitted forest is packed onto its bin grid
+alpha=10.  Fitting is the JAX package's numpy histogram-tree fit
+(``_fit_tree``: squared loss, quantile bins, XGBoost's L1/L2 leaf
+shrinkage ``w = -sign(G)·max(|G|-α, 0) / (H + λ)``), vectorized over the
+features with every float sum taken in the reference's order, so the same
+inputs give the same trees.  A fitted forest is packed onto its bin grid
 (``_pack_binned``) and predicts on the device:
 
 * ``E`` (f, max_e) float32 — per-feature sorted bin edges, +inf padded;
@@ -58,60 +59,73 @@ def _leaf_value(G, H, cfg):
     return w
 
 
-def _fit_tree(X, grad, cfg: GBDTConfig, bins) -> _Tree:
+def _bin_keys(X, bins, n_bins: int) -> np.ndarray:
+    """(f, n) int64: feature ``j``'s bin id of each row on its grid, plus
+    ``j * (n_bins + 1)``, so that the features' bins lie end to end."""
+    n, f = X.shape
+    keys = np.empty((f, n), np.int64)
+    for j in range(f):
+        keys[j] = (np.searchsorted(bins[j], X[:, j], side="right")
+                   + j * (n_bins + 1))
+    return keys
+
+
+def _fit_tree(X, grad, cfg: GBDTConfig, bins, keys=None) -> _Tree:
     """One depth-wise histogram tree on host arrays: per node and feature,
-    the best split over the bin grid by gain (first maximum), nodes with
-    fewer than ``2 * min_child`` rows left as leaves."""
+    the best split over the bin grid by gain (first maximum, features in
+    order), nodes with fewer than ``2 * min_child`` rows left as leaves.
+
+    The reference's per-node, per-feature loop, vectorized without
+    changing a float sum: each node keeps its rows in increasing order
+    (what the reference's ``node_of == node`` mask selects), and one
+    ``bincount`` over the features' bins laid end to end adds each bin's
+    gradients in the order the reference's per-feature ``bincount`` does.
+    ``keys`` is ``_bin_keys(X, bins, cfg.n_bins)``, passed by a caller
+    that fits many trees on one grid."""
     n, f = X.shape
     tree = _Tree(cfg.max_depth)
-    node_of = np.zeros(n, np.int32)  # current node per sample
-    # binned features once
-    Xb = np.empty((n, f), np.int32)
-    for j in range(f):
-        Xb[:, j] = np.searchsorted(bins[j], X[:, j], side="right")
+    if keys is None:
+        keys = _bin_keys(X, bins, cfg.n_bins)
+    nb = cfg.n_bins + 1
+    feats = np.arange(f)
+    rows = {0: np.arange(n)}        # node -> its rows, in row order
 
     for depth in range(cfg.max_depth):
-        level = range(2 ** depth - 1, 2 ** (depth + 1) - 1)
-        for node in level:
-            mask = node_of == node
-            cnt = int(mask.sum())
-            if cnt < 2 * cfg.min_child:
+        for node in range(2 ** depth - 1, 2 ** (depth + 1) - 1):
+            idx = rows.get(node)
+            if idx is None or len(idx) < 2 * cfg.min_child:
                 continue
-            g = grad[mask]
-            xb = Xb[mask]
+            cnt = len(idx)
+            g = grad[idx]
+            k = np.take(keys, idx, axis=1).ravel()
             G, H = g.sum(), float(cnt)
             base = _gain(G, H, cfg)
-            best = (0.0, -1, -1)
-            for j in range(f):
-                hist_g = np.bincount(xb[:, j], weights=g,
-                                     minlength=cfg.n_bins + 1)
-                hist_n = np.bincount(xb[:, j], minlength=cfg.n_bins + 1)
-                cg = np.cumsum(hist_g)[:-1]
-                cn = np.cumsum(hist_n)[:-1]
-                ok = (cn >= cfg.min_child) & (H - cn >= cfg.min_child)
-                if not ok.any():
-                    continue
-                gain = (_gain(cg, cn, cfg) + _gain(G - cg, H - cn, cfg) - base)
-                gain = np.where(ok, gain, -np.inf)
-                b = int(np.argmax(gain))
-                if gain[b] > best[0]:
-                    best = (float(gain[b]), j, b)
-            if best[1] >= 0:
-                j, b = best[1], best[2]
+            hist_g = np.bincount(k, weights=np.tile(g, f),
+                                 minlength=f * nb).reshape(f, nb)
+            hist_n = np.bincount(k, minlength=f * nb).reshape(f, nb)
+            cg = np.cumsum(hist_g, axis=1)[:, :-1]
+            cn = np.cumsum(hist_n, axis=1)[:, :-1]
+            ok = (cn >= cfg.min_child) & (H - cn >= cfg.min_child)
+            gain = (_gain(cg, cn, cfg) + _gain(G - cg, H - cn, cfg) - base)
+            gain = np.where(ok, gain, -np.inf)
+            b = np.argmax(gain, axis=1)
+            top = gain[feats, b]
+            j = int(np.argmax(top))
+            if top[j] > 0.0:
+                b = int(b[j])
                 tree.is_leaf[node] = False
                 tree.feature[node] = j
                 thr = bins[j][b] if b < len(bins[j]) else np.inf
                 tree.threshold[node] = thr
-                go_right = X[mask, j] > thr
-                idx = np.where(mask)[0]
-                node_of[idx[go_right]] = 2 * node + 2
-                node_of[idx[~go_right]] = 2 * node + 1
+                go_right = X[idx, j] > thr
+                del rows[node]
+                rows[2 * node + 1] = idx[~go_right]
+                rows[2 * node + 2] = idx[go_right]
 
     # leaf values for every node a sample can stop at
-    for node in range(len(tree.is_leaf)):
-        mask = node_of == node
-        if mask.any():
-            tree.leaf[node] = _leaf_value(grad[mask].sum(), float(mask.sum()),
+    for node, idx in rows.items():
+        if len(idx):
+            tree.leaf[node] = _leaf_value(grad[idx].sum(), float(len(idx)),
                                           cfg)
     return tree
 
@@ -182,6 +196,38 @@ def _pack_binned(trees: List[_Tree], bins, depth: int) -> dict:
             isl_d[:, c] = isl_d[:, c] | upd
     code = feat * (1 << 15) + thrb
     return {"E": E, "code": code, "leaf_bot": leaf_d[:, n_int:]}
+
+
+def _unpack_trees(code, leaf_bot, E, depth: int) -> List[_Tree]:
+    """The host trees a bin pack stands for: each internal node splits at
+    its bin edge (``inf`` for the never-right marker), leaves only on the
+    bottom level.  ``_predict_tree_np`` on them gives the packed forest's
+    per-tree leaves exactly: a pushed-down early leaf is reached through
+    any of its descendants, and ``x > edge`` is the pack's bin compare."""
+    code = np.asarray(code, np.int64)
+    leaf_bot = np.asarray(leaf_bot, np.float32)
+    E = np.asarray(E, np.float32)
+    n_int = 2 ** depth - 1
+    feat = code[:, :n_int] >> 15
+    b = code[:, :n_int] & 0x7FFF
+    never = b == _BIN_SENTINEL
+    thr = np.where(never, np.float32(np.inf),
+                   E[feat, np.where(never, 0, b)])
+    trees = []
+    for t in range(len(code)):
+        tree = _Tree(depth)
+        tree.feature[:n_int] = feat[t]
+        tree.threshold[:n_int] = thr[t]
+        tree.is_leaf[:n_int] = False
+        tree.leaf[n_int:] = leaf_bot[t]
+        trees.append(tree)
+    return trees
+
+
+def _host32(X) -> np.ndarray:
+    if isinstance(X, torch.Tensor):
+        X = X.detach().cpu().numpy()
+    return np.asarray(X, np.float32)
 
 
 @dataclasses.dataclass
@@ -282,9 +328,10 @@ class GBDTRegressor:
                      for j in range(X.shape[1])]
         self.bins = [np.unique(b) for b in self.bins]
         self.trees = []
+        keys = _bin_keys(X, self.bins, cfg.n_bins)
         for _ in range(cfg.n_rounds):
             grad = pred - y                       # squared loss
-            tree = _fit_tree(X, grad, cfg, self.bins)
+            tree = _fit_tree(X, grad, cfg, self.bins, keys)
             self.trees.append(tree)
             pred += cfg.lr * _predict_tree_np(tree, X)
         self.packed = PackedForest.from_arrays(
@@ -300,6 +347,19 @@ class GBDTRegressor:
         return _by_row_blocks(
             lambda x: _forest_scan(pk.code, pk.leaf_bot, x, pk.E, pk.base,
                                    lr, pk.depth), X)
+
+    def predict_np(self, X) -> np.ndarray:
+        """The numpy reference on the host: ``base``, then ``lr * leaf``
+        tree by tree in float32, over the fitted trees (or those of a
+        carried pack)."""
+        X = _host32(X)
+        pk = self.packed
+        trees = self.trees or _unpack_trees(
+            pk.code.cpu(), pk.leaf_bot.cpu(), pk.E.cpu(), pk.depth)
+        pred = np.full(len(X), float(pk.base), np.float32)
+        for t in trees:
+            pred += pk.lr * _predict_tree_np(t, X)
+        return pred
 
 
 class GBDTClassifier:
@@ -341,6 +401,29 @@ class GBDTClassifier:
 
     def predict(self, X: torch.Tensor) -> torch.Tensor:
         return torch.argmax(self.predict_scores(X), dim=1).to(torch.int32)
+
+    def predict_proba(self, X: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(self.predict_scores(X), dim=1)
+
+    def _class_models(self) -> List[GBDTRegressor]:
+        """One regressor per class: the fitted ones, or views of the
+        stacked pack of a carried classifier."""
+        if self.models:
+            return self.models
+        pk = self.packed
+        return [GBDTRegressor(packed=PackedForest(
+            E=pk.E, code=pk.code[c], leaf_bot=pk.leaf_bot[c],
+            base=pk.base[c], lr=pk.lr, depth=pk.depth))
+            for c in range(self.n_classes)]
+
+    # -- numpy reference (per-class tree loops on the host) -----------------
+    def predict_proba_np(self, X) -> np.ndarray:
+        scores = np.stack([m.predict_np(X) for m in self._class_models()], 1)
+        e = np.exp(scores - scores.max(1, keepdims=True))
+        return e / e.sum(1, keepdims=True)
+
+    def predict_np(self, X) -> np.ndarray:
+        return self.predict_proba_np(X).argmax(1).astype(np.int32)
 
 
 def forest_from_state(state: dict, prefix: str, device

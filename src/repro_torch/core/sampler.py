@@ -89,6 +89,16 @@ class EdgeSamplerBackend:
     #: the JAX package's backend whose id stream this one reproduces
     stream: str = "?"
 
+    def available(self) -> bool:
+        return self.why_unavailable() is None
+
+    def why_unavailable(self) -> Optional[str]:
+        """Why this backend cannot run its own engine on this host (None:
+        it can).  Reporting it changes no call: the CUDA backends still
+        take their plain versions on CPU tensors and raise for a card
+        that is not there."""
+        return None
+
     def sample_parts(self, key, thetas, n: int, m: int, n_edges: int,
                      device) -> Tuple[IdParts, IdParts]:
         """``(src, dst)`` id words on ``device``, possibly padded past
@@ -123,7 +133,17 @@ class ReferenceBackend(EdgeSamplerBackend):
             lambda: torch.zeros(n_edges, dtype=torch.int32, device=device))
 
 
-class CudaBitsBackend(EdgeSamplerBackend):
+class _KernelBackend(EdgeSamplerBackend):
+    """A backend whose engine is a CUDA kernel: it needs a card."""
+
+    def why_unavailable(self) -> Optional[str]:
+        if not torch.cuda.is_available():
+            return (f"{self.name} launches a CUDA kernel and no CUDA card "
+                    "is visible (torch.cuda.is_available() is False)")
+        return None
+
+
+class CudaBitsBackend(_KernelBackend):
     """``bits(key, (L, E_pad))`` in device memory → the bits kernel."""
     name = "cuda_bits"
     stream = "pallas_bits"
@@ -140,7 +160,7 @@ class CudaBitsBackend(EdgeSamplerBackend):
         return rs.rmat_sample_bits(_thetas_on(thetas, device), bits, n, m)
 
 
-class CudaPrngBackend(EdgeSamplerBackend):
+class CudaPrngBackend(_KernelBackend):
     """The words of ``cuda_bits`` made in registers (kernel K2)."""
     name = "cuda_prng"
     stream = "pallas_bits"
@@ -165,7 +185,12 @@ register_backend(CudaPrngBackend())
 
 
 def registered_backends() -> List[str]:
+    """Every registered backend name (available on this host or not)."""
     return list(_REGISTRY)
+
+
+def available_backends() -> List[str]:
+    return [n for n, b in _REGISTRY.items() if b.available()]
 
 
 def get_backend(name: str) -> EdgeSamplerBackend:

@@ -115,6 +115,14 @@ def compact_subgraph(src, dst, bipartite: bool, device=None) -> Graph:
     return Graph(si, di, len(ids), len(ids), bipartite=False)
 
 
+def dedup_edges(src, dst, n_dst: int):
+    """Remove duplicate (src, dst) pairs on the host (numpy); the pairs
+    come back sorted by ``src * n_dst + dst``."""
+    key = np.asarray(src, np.int64) * n_dst + np.asarray(dst, np.int64)
+    _, idx = np.unique(key, return_index=True)
+    return np.asarray(src)[idx], np.asarray(dst)[idx]
+
+
 class _EdgeSum:
     """``x ↦ Σ_{e: dst[e] = v} x[src[e]]`` for every node ``v < n``, the
     per-iteration sum of PageRank and Katz.  The CPU takes ``index_add_``

@@ -9,7 +9,10 @@
 * ``metrics`` — counter/gauge/histogram registry (rows written, bytes
   flushed, queue depth, backpressure stalls, shard commit latency with
   p50/p95/p99) plus the versioned ``--metrics-out`` envelope
-  (``bench_envelope``: schema version, git SHA, host, torch, CUDA, card).
+  (``bench_envelope``: schema version, git SHA, host, torch, CUDA, the
+  card and its power limit).
+* ``export``  — Chrome-trace / Perfetto export of an event log
+  (``python -m repro_torch.scripts.report_run TRACE --perfetto OUT``).
 * ``sinks``   — in-memory (tests) and crash-tolerant JSONL event logs
   (written next to the dataset manifest by ``--trace``).
 * ``profile`` — optional ``torch.profiler`` session with named ranges

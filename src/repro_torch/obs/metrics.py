@@ -215,6 +215,21 @@ def _git_sha() -> Optional[str]:
     return None
 
 
+def gpu_line() -> Optional[str]:
+    """The first card's ``name, power.limit`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints it
+    (``"NVIDIA H100 80GB HBM3, 700.00 W"``); None where ``nvidia-smi``
+    is missing or names no card."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else None
+
+
 def run_env() -> Dict[str, Any]:
     """Host/device provenance stamped on every benchmark/metrics file —
     numbers without the machine that produced them don't trend."""
@@ -237,6 +252,11 @@ def run_env() -> Dict[str, Any]:
     except Exception:        # noqa: BLE001 — env report must never fail
         env.update(torch=None, cuda=None, device=None, n_devices=None,
                    card=None)
+    # a card's times hold only beside its power limit (it may be set
+    # below the maximum, and then runs slower under load)
+    line = gpu_line() if env["card"] else None
+    env["power_limit"] = (line.rsplit(",", 1)[1].strip()
+                          if line and "," in line else None)
     return env
 
 

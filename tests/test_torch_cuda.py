@@ -20,7 +20,9 @@ fidelity scores and graph statistics on the card equal the CPU's
 card follows the CPU's losses within 1e-4.  The baseline generators (ER
 and SBM ids, KDE and Random rows, ``sample_erdos_renyi``) give the CPU's
 bytes exactly: the same numpy draws, integer work and IEEE float64
-arithmetic on the card."""
+arithmetic on the card.  The benchmarks' ``timeit`` of a K2 draw covers
+the draw's CUDA-event time, and Fig. 8 times its three backends on the
+card, each at most its H100 bound."""
 import numpy as np
 import pytest
 import torch
@@ -803,3 +805,59 @@ def test_erdos_renyi_on_card_equals_cpu(cuda, n_src, n_dst, n_edges):
                                 device="cpu")
     assert s.is_cuda and s.dtype == torch.int32
     assert torch.equal(s.cpu(), ws) and torch.equal(d.cpu(), wd)
+
+
+def test_timeit_covers_the_draws_device_time(cuda):
+    """``benchmarks.common.timeit`` of a K2 draw ends on the device: each
+    timed call records CUDA events around its draw, and the host time per
+    call is at least the device time between them (the median of the
+    host times at least the median of the event times, since each call's
+    host time covers its own events).  A ``timeit`` that timed only the
+    launches would give tens of microseconds against milliseconds."""
+    from repro_torch.benchmarks.common import timeit
+    L, E, repeats = 24, 1 << 26, 3
+    th = np.tile(np.asarray(TH, np.float32), (L, 1))
+    be = sampler.get_backend("cuda_prng")
+    events = []
+
+    def draw():
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        be.sample(tr.PRNGKey(3), th, L, L, E, device=cuda)
+        stop.record()
+        events.append((start, stop))
+    rs.reset_launches()
+    host_us = timeit(draw, repeats=repeats, warmup=1, device=cuda)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["rmat_sample_prng"] == repeats + 1
+    device_us = sorted(a.elapsed_time(b) * 1e3 for a, b in events[1:])
+    assert host_us >= device_us[repeats // 2] > 1000
+
+
+def test_fig8_on_card_under_its_bound(cuda, tmp_path, monkeypatch):
+    """Fig. 8 on the card times all three backends (K1 and K2 each
+    launched), each at most its H100 bound; the card's ids equal the
+    plain version's for the same key."""
+    from repro_torch.benchmarks import fig8_throughput as fig8
+    monkeypatch.chdir(tmp_path)
+    rs.reset_launches()
+    rows = {r["name"]: r for r in fig8.run(fast=True, device="cuda")}
+    assert rs.LAUNCHES["rmat_sample_bits"] >= 2
+    assert rs.LAUNCHES["rmat_sample_prng"] >= 2
+    for name in sampler.registered_backends():
+        derived = dict(kv.split("=") for kv in
+                       rows[f"fig8/{name}"]["derived"].split(";"))
+        assert float(derived["eps"]) > 0
+        assert 0 < float(derived["of_bound"]) <= 1.0, (name, derived)
+    th = fig8.thetas()
+    E = fig8.E_FAST["cuda_bits"]
+    L = fig8.N_LEVELS
+    got = [sampler.get_backend(n).sample(tr.PRNGKey(1), th, L, L, E,
+                                         device=cuda)
+           for n in ("cuda_bits", "cuda_prng")]
+    want = sampler.get_backend("cuda_bits").sample(tr.PRNGKey(1), th, L, L,
+                                                   E, device="cpu")
+    for ids in got:
+        for a, b in zip(ids, want):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)

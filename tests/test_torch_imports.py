@@ -36,4 +36,5 @@ def test_scan_sees_the_package():
             "reference.py", "chip_smoke.py", "scheduler.py", "writer.py",
             "executor.py", "service.py", "distributed_gen.py", "trace.py",
             "generate_dataset.py", "fitsource.py", "fit_dataset.py",
-            "gnn.py"} <= names
+            "gnn.py", "bounds.py", "export.py", "report_run.py",
+            "fig8_throughput.py", "feature_throughput.py"} <= names
