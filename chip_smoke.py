@@ -6,8 +6,9 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per library, all at once) and drives the port's paths on the card:
 graph generation (phases 2-7), fitting (phase 4b), writing datasets to
-disk (phase 13), scoring what it generates (phase 14), the paper's
-baselines (phase 15), the paper's benchmark tables (phase 16), the dense
+disk (phase 13) and across worker processes (phase 17), scoring what it
+generates (phase 14), the paper's baselines (phase 15), the paper's
+benchmark tables (phase 16), the dense
 LM's scoring forward and serving engine (phases 8-10) and the toolchain
 probes S1-S4 (phase 12):
 
@@ -34,7 +35,11 @@ probes S1-S4 (phase 12):
     each draw 40 000 rows (seed 0) that agree per column within the bounds
     of ``GAN_*`` and meet the real table within those of ``REAL_*``;
     ``col_quality`` within ``COL_QUALITY_TOL`` of the asset's; the state
-    round trip keeps edges and GBDT scores; ``generate(seed=0,
+    round trip keeps edges and GBDT scores; the round-tripped aligner's
+    ``predict_rows`` (one packed scan over every forest) on the card
+    equals its host ``predict_np`` trees on ``PREDICT_ROWS`` rows (cont
+    columns within ``PREDICT_TOL``, each categorical column's class the
+    host's best score within it); ``generate(seed=0,
     scale_nodes=4, chunked=True)`` from the port's fit launches K2 (counters
     reset before), its edges equal the asset pipeline's, and K2 and the
     run's edges equal the plain version on every chunk; the fit's stage
@@ -184,7 +189,8 @@ probes S1-S4 (phase 12):
 16. benchmarks (run after phase 13): the tables of
     ``python -m repro_torch.benchmarks.run`` at their fast sizes, each
     through the runner's ``run_table``, but Table 2, 5 and 6
-    (``BENCH_SKIP``: phases 4, 14 and 15 drive their paths); every
+    (``BENCH_SKIP``: phases 4, 14 and 15 drive their paths) and
+    ``cluster_scaling`` (phase 17(f) runs it); every
     table's row names (``BENCH_ROWS``) or result keys (``BENCH_KEYS``) and
     finite numbers; Fig. 8 times ``reference``, ``cuda_bits`` (K1) and
     ``cuda_prng`` (K2), each at most its H100 bound, and their ids for
@@ -195,6 +201,20 @@ probes S1-S4 (phase 12):
     and K2's launches over the tables (counters reset first) and their
     error are their ``bench_path_*`` fields; the wall is logged beside
     ``BENCH_BUDGET_S``.
+17. scale-out (run after phase 13, on its (a) dataset; ``phase_scaleout``):
+    (a) ``repro_torch.scripts.generate_dataset --num-workers 2`` writes
+    13(a)'s ×64 struct-only plan with two worker processes sharing
+    the card: shards equal to 13(a)'s byte for byte, the workers' K2
+    launches (their ``metrics.w*.json``) summing to 13(a)'s, the cluster's
+    and 13(a)'s walls and each worker's stage seconds logged; (b) the same
+    with ``kill_after={1: 1}``: two rounds, the same bytes, deep verify
+    clean; (c) a featured ×4 ``--asset`` cluster of 2 workers equal to
+    the serial featured run; (d) ``device_generate`` over four entries on
+    ``cuda:0`` equal to the CPU's; (e) the examples ``trillion_edge_plan``
+    (16 K2 launches) and ``serve_batched``; (f) ``cluster_scaling`` at its
+    fast size, ``byte_identical``.  The wall is logged beside
+    ``SCALE_BUDGET_S``; K2's row carries ``scaleout_path_launches`` (a) and
+    ``scaleout_examples_launches`` (e).
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
 ``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
@@ -1016,6 +1036,33 @@ def _draw_meets_table(label: str, gen, cont, cat, cards) -> tuple:
     return stats
 
 
+#: phase 4b: rows of the aligner's inputs that ``predict_rows`` scores on
+#: the card against the host trees, and the bound on the difference (both
+#: sum ``base`` then ``lr * leaf`` tree by tree in float32)
+PREDICT_ROWS, PREDICT_TOL = 2048, 1e-5
+
+
+def predict_rows_vs_host(al, X, torch) -> tuple:
+    """``al.predict_rows(X)`` on the card against the host's
+    ``predict_np`` trees: the cont columns' max abs difference, and how far
+    each categorical column's chosen class scores below the host's best
+    class for its row (0 where the argmax agrees)."""
+    import numpy as np
+    got = al.predict_rows(X).cpu().numpy()
+    Xh = X.cpu().numpy()
+    nc = len(al.cont_models)
+    err = max([float(np.abs(got[:, i] - m.predict_np(Xh)).max())
+               for i, m in enumerate(al.cont_models)] + [0.0])
+    gap = 0.0
+    cats = [m for m in al.cat_models if m is not None]
+    rows = np.arange(len(Xh))
+    for j, m in enumerate(cats):
+        scores = np.stack([r.predict_np(Xh) for r in m._class_models()], 1)
+        pick = got[:, nc + j].astype(np.int64)
+        gap = max(gap, float((scores.max(1) - scores[rows, pick]).max()))
+    return err, gap
+
+
 def phase_fit(convert, SyntheticGraphPipeline, GANFeatureGenerator,
               tabformer_like, asset_pipe, tr, rmat, sampler, ref, rs,
               torch) -> tuple:
@@ -1108,6 +1155,16 @@ def phase_fit(convert, SyntheticGraphPipeline, GANFeatureGenerator,
     score_err = max(float((fa(X) - fb(X)).abs().max()) for fa, fb in
                     zip(scorers(pipe.aligner), scorers(back.aligner)))
     check(score_err == 0.0, f"round trip changed GBDT scores ({score_err})")
+    pred_err, pred_gap = predict_rows_vs_host(back.aligner,
+                                              X[:PREDICT_ROWS], torch)
+    check(pred_err <= PREDICT_TOL and pred_gap <= PREDICT_TOL,
+          f"predict_rows on the card against the host trees: cont max "
+          f"|diff| {pred_err}, class score gap {pred_gap} (bound "
+          f"{PREDICT_TOL})")
+    log(f"fit: predict_rows (packed scan) on {len(X[:PREDICT_ROWS])} rows "
+        f"against predict_np: cont max |diff| {pred_err:.3g}, chosen "
+        f"class's host score below the best by at most {pred_gap:.3g} "
+        f"(bound {PREDICT_TOL})")
     log(f"fit: generate(seed=0, scale_nodes=4, chunked=True) from the "
         f"port's fit: {g1.n_edges} edges in {gen_s:.3f}s, {launches} K2 "
         f"launches; src/dst equal the asset pipeline's and the round "
@@ -1339,7 +1396,7 @@ def _n_groups(sched, ds_source) -> int:
 
 
 def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch,
-                     trace_out: str) -> dict:
+                     trace_out: str, keep64: str) -> dict:
     """Phase 13: ``DatasetJob`` writes the committed fit to disk.
 
     (a) struct only at ``scale_nodes=64`` (163 840 000 int32 edges, shards
@@ -1358,7 +1415,9 @@ def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch,
     pipelined and fused, and the CLI killed (SIGKILL) once its journal
     holds a record and then resumed, all byte-identical; the resumed run
     writes its event log (``--trace``) to ``trace_out`` for phase 16.
+    (a)'s dataset is moved to ``keep64`` for phase 17.
     Returns K2's launches in (a), its max error and the run's numbers."""
+    import dataclasses
     import os
     import shutil
     import signal
@@ -1434,6 +1493,7 @@ def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch,
             f"chunk (n={n_s} m={m_s} E={big.n_edges} stride={pad}): "
             f"max|err| {err}")
         out.update(launches=launches["rmat_sample_prng"], err=err,
+                   fit64=dataclasses.asdict(fit),
                    wall_s=wall, edges_per_s=fit.E / wall, bytes=nbytes,
                    timings=dict(t), chunks=len(job.scheduler.chunks),
                    shards=len(job.scheduler.shards))
@@ -1532,6 +1592,7 @@ def phase_datastream(convert, tr, rmat, sampler, ref, rs, torch,
         out["refit"] = phase_refit(
             work, path, dirs["cuda"], os.path.join(work, "feat-serial"),
             tr, rmat, sampler, ref, rs, torch)
+        os.rename(path, keep64)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         del pipe
@@ -2079,10 +2140,249 @@ def phase_baselines(asset_pipe, fit_pipe, tr, rmat, sampler, ref, rs,
     return out
 
 
+#: phase 17: its wall is logged beside this budget
+SCALE_BUDGET_S = 60.0
+#: phase 17(c): the featured cluster's scale and shard size (640 000
+#: edges in 5 shards, at least two a worker)
+SCALE_FEAT_SCALE, SCALE_FEAT_SHARD = 4, 1 << 17
+#: phase 17(d): the mesh step's shape (the ×64 fit's n=18 under a 2-bit
+#: device prefix, m=15; 2^14 edges a device, as the CPU's plain stream
+#: takes ~28 s at 2^18)
+MESH_N, MESH_M, MESH_EPD = 16, 15, 1 << 14
+
+
+def _shards_equal(a: str, b: str) -> bool:
+    """Every shard file of dataset ``a`` equals ``b``'s, byte for byte."""
+    import filecmp
+    import os
+    names = sorted(f for f in os.listdir(a) if f.endswith(".npy"))
+    return names == sorted(f for f in os.listdir(b) if f.endswith(".npy")) \
+        and all(filecmp.cmp(os.path.join(a, f), os.path.join(b, f),
+                            shallow=False) for f in names)
+
+
+def _sans_placement(path) -> dict:
+    """The manifest without placement provenance (executor knobs, worker
+    count, each shard's worker): none changes a byte of data."""
+    d = _sans_executor(path)
+    d.pop("num_workers", None)
+    for rec in d["shards"]:
+        rec.pop("worker", None)
+    return d
+
+
+def _worker_metrics(prefix: str, n: int) -> list:
+    """The ``metrics.w{k}.json`` envelopes the cluster's workers wrote."""
+    out = []
+    for k in range(n):
+        with open(f"{prefix}.w{k}.json") as f:
+            out.append(json.load(f)["metrics"])
+    return out
+
+
+def _worker_split(metrics: list) -> list:
+    """Each worker's stage seconds and K2 launches."""
+    return [{"launches": m["launches"]["rmat_sample_prng"],
+             **{k: round(m["timings"][k], 3) for k in
+                ("gen_struct_s", "gen_feat_s", "gen_align_s", "write_s",
+                 "wall_s")}} for m in metrics]
+
+
+def phase_scaleout(path64: str, stream: dict, tr, rs, torch) -> dict:
+    """Phase 17: the multi-process generation cluster on the one card.
+
+    (a) ``repro_torch.scripts.generate_dataset``'s ``--num-workers 2``
+    (this process plans and merges, two worker processes share the card)
+    writes phase 13(a)'s ×64 struct-only plan: its shard files must
+    equal 13(a)'s byte for byte, and its workers' K2 launches, read from
+    their ``metrics.w*.json``, must sum to 13(a)'s (one a chunk).
+    (b) the same through ``run_cluster`` with ``kill_after={1: 1}``: two
+    rounds, worker 1 SIGKILLed after its first commit, the same bytes,
+    the deep verify clean.  (c) the committed fit's GAN features and GBDT
+    alignment at ×4 by a 2-worker cluster (``--asset``) equal the serial
+    featured run in this process, shards and manifest bar placement.  (d)
+    ``device_generate`` on a mesh of four entries on ``cuda:0`` equals the
+    CPU's ids.  (e) the examples ``trillion_edge_plan`` (K2 on its
+    miniature) and ``serve_batched``.  (f) ``cluster_scaling`` at its fast
+    size through the runner's ``run_table``, ``byte_identical`` true.
+    Returns the walls, the per-worker stage splits and K2's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks.common import BENCH_DIR
+    from repro_torch.core import distributed_gen as dg
+    import numpy as np
+
+    from repro_torch.datastream import DatasetJob, FeatureSpec, Manifest
+    from repro_torch.examples import serve_batched, trillion_edge_plan
+    from repro_torch.scripts import generate_dataset as gen_cli
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    walls, out = {}, {}
+    cwd = os.getcwd()
+    try:
+        # (a) the ×64 plan by two worker processes
+        t0 = time.time()
+        a = os.path.join(work, "cluster64")
+        m_a = os.path.join(work, "a-metrics.json")
+        fit64 = os.path.join(work, "fit64.json")
+        with open(fit64, "w") as f:
+            json.dump(stream["fit64"], f)
+        flags64 = ["--fit", fit64, "--shard-edges", str(STREAM_SHARD),
+                   "--seed", "0", "--num-workers", "2"]
+        check(gen_cli.main(flags64 + ["--out", a, "--metrics-out", m_a])
+              == 0, "17(a): the cluster failed")
+        walls["a"] = round(time.time() - t0, 2)
+        t1 = time.time()
+        same = _shards_equal(a, path64)
+        check(same, "17(a): the cluster's shards differ from 13(a)'s")
+        wm = _worker_split(_worker_metrics(m_a[:-5], 2))
+        launches = sum(w["launches"] for w in wm)
+        check(launches == stream["launches"] and min(
+            w["launches"] for w in wm) > 0,
+              f"17(a): K2 launched {[w['launches'] for w in wm]} times in "
+              f"the workers, {stream['launches']} in 13(a)")
+        log(f"scale-out (a): 2 workers wrote 13(a)'s plan "
+            f"({stream['chunks']} chunks in {stream['shards']} shards): "
+            f"cluster wall {walls['a']:.2f}s (plan, two worker processes "
+            f"from their start, merge) against 13(a)'s serial "
+            f"{stream['wall_s']:.3f}s in-process; shards == 13(a)'s: "
+            f"{same} (compared in {time.time() - t1:.2f}s); K2 launches "
+            f"per worker {[w['launches'] for w in wm]} (sum {launches}); "
+            f"per-worker stages {wm}")
+        out["a"] = {"wall_s": walls["a"], "serial_wall_s": stream["wall_s"],
+                    "workers": wm, "launches": launches}
+        shutil.rmtree(a)
+
+        # (b) kill worker 1 after its first shard
+        t0 = time.time()
+        b = os.path.join(work, "kill64")
+        rc = gen_cli.main(flags64 + ["--out", b, "--verify"],
+                          kill_after={1: 1})
+        walls["b"] = round(time.time() - t0, 2)
+        man = Manifest.load(b)
+        check(rc == 0 and man.is_complete() and man.num_workers == 1,
+              f"17(b): rc {rc} (its deep verify), complete "
+              f"{man.is_complete()}, {man.num_workers} worker(s) recorded")
+        same = _shards_equal(b, path64)
+        check(same, "17(b): the rebalanced cluster's shards differ")
+        log(f"scale-out (b): kill_after {{1: 1}}: wall {walls['b']:.2f}s "
+            f"with its deep verify, two rounds (the second on the one "
+            f"survivor's stripe count), shards == 13(a)'s: {same}")
+        out["b"] = {"wall_s": walls["b"]}
+        shutil.rmtree(b)
+
+        # (c) features and alignment: cluster against serial
+        t0 = time.time()
+        pipe = convert.pipeline_from_state(convert.load_state(ASSET),
+                                           device="cuda")
+        fit4 = pipe.struct.scaled(SCALE_FEAT_SCALE)
+        serial = os.path.join(work, "feat4-serial")
+        job = DatasetJob(fit4, serial, shard_edges=SCALE_FEAT_SHARD, seed=0,
+                         features=FeatureSpec(pipe.features, pipe.aligner))
+        job.run()
+        walls["c_serial"] = round(time.time() - t0, 2)
+        del pipe
+        t0 = time.time()
+        c = os.path.join(work, "feat4-cluster")
+        m_c = os.path.join(work, "c-metrics.json")
+        check(gen_cli.main(["--asset", str(ASSET), "--scale-nodes",
+                            str(SCALE_FEAT_SCALE), "--shard-edges",
+                            str(SCALE_FEAT_SHARD), "--seed", "0", "--out", c,
+                            "--num-workers", "2", "--metrics-out", m_c])
+              == 0, "17(c): the featured cluster failed")
+        walls["c"] = round(time.time() - t0, 2)
+        same = _shards_equal(c, serial)
+        manif = _sans_placement(c) == _sans_placement(serial)
+        wc = _worker_split(_worker_metrics(m_c[:-5], 2))
+        check(same and manif and len(job.scheduler.shards) >= 4,
+              f"17(c): featured cluster shards equal {same}, manifests "
+              f"equal bar placement {manif}")
+        log(f"scale-out (c): featured x{SCALE_FEAT_SCALE} (E={fit4.E}, "
+            f"{len(job.scheduler.shards)} shards): serial "
+            f"{walls['c_serial']:.2f}s (load + run), cluster "
+            f"{walls['c']:.2f}s; shards and manifest (bar placement) equal: "
+            f"{same and manif}; per-worker stages {wc}")
+        out["c"] = {"wall_s": walls["c"], "serial_wall_s": walls["c_serial"],
+                    "workers": wc}
+
+        # (d) the mesh step on one card
+        t0 = time.time()
+        th = np.random.default_rng(0).dirichlet(np.ones(4), MESH_N + 2)
+        seeds = dg.step_seeds(0, 1, 4)
+        got = dg.device_generate(th, seeds, MESH_N, MESH_M, MESH_EPD,
+                                 mesh=["cuda:0"] * 4)
+        want = dg.device_generate(th, seeds, MESH_N, MESH_M, MESH_EPD,
+                                  mesh=["cpu"] * 4)
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        prefixes = [sorted(set((got[0][i] >> MESH_N).cpu().tolist()))
+                    for i in range(4)]
+        check(same and prefixes == [[0], [1], [2], [3]],
+              f"17(d): mesh ids equal {same}, prefixes {prefixes}")
+        walls["d"] = round(time.time() - t0, 2)
+        log(f"scale-out (d): device_generate over 4 x cuda:0 (n={MESH_N} "
+            f"under a 2-bit prefix, m={MESH_M}, {MESH_EPD} edges a device) "
+            f"== the CPU's: {same}; prefixes {prefixes}")
+
+        # (e) the examples
+        t0 = time.time()
+        rs.reset_launches()
+        ex = trillion_edge_plan.main(device="cuda")
+        k2 = rs.LAUNCHES["rmat_sample_prng"]
+        check(k2 == 16 and int(ex["sizes"].sum()) == 10 ** 12
+              and np.abs(ex["theta"] - DEMO_THETA).max() < 0.01,
+              f"17(e): trillion_edge_plan: K2 {k2}, theta {ex['theta']}")
+        walls["e_trillion"] = round(time.time() - t0, 2)
+        t0 = time.time()
+        served = serve_batched.main(device="cuda")
+        check(sorted(served["out"]) == list(range(10))
+              and served["tokens"] == 160, "17(e): serve_batched")
+        walls["e_serve"] = round(time.time() - t0, 2)
+        log(f"scale-out (e): trillion_edge_plan {walls['e_trillion']:.2f}s "
+            f"(K2 {k2} launches on the miniature, theta "
+            f"{np.round(ex['theta'], 4).tolist()}); serve_batched "
+            f"{walls['e_serve']:.2f}s, {served['tokens']} tokens in "
+            f"{served['seconds']:.3f}s")
+        out["e"] = {"k2": k2, "theta": ex["theta"].tolist(),
+                    "serve_s": served["seconds"]}
+
+        # (f) the benchmark at its fast size
+        t0 = time.time()
+        os.chdir(work)
+        res = bench_run.run_table("cluster_scaling", True, "cuda")
+        walls["f"] = round(time.time() - t0, 2)
+        check(res["byte_identical"] is True,
+              f"17(f): cluster_scaling: {res}")
+        with open(os.path.join(BENCH_DIR, "BENCH_cluster.json")) as f:
+            env = json.load(f)["env"]
+        card = gpu_line()
+        check(env["card"] == torch.cuda.get_device_name(0)
+              and env["power_limit"] == card.rsplit(",", 1)[1].strip(),
+              f"17(f): BENCH_cluster.json names {env['card']!r}, "
+              f"{env['power_limit']!r}, not {card!r}")
+        log(f"scale-out (f): cluster_scaling fast ({res['edges']} edges): "
+            f"serial {res['serial']['seconds']:.2f}s, 2 workers "
+            f"{res['cluster2']['seconds']:.2f}s, speedup "
+            f"{res['speedup']:.3f}, byte_identical {res['byte_identical']}")
+        out["f"] = {k: res[k] for k in ("serial", "cluster2", "speedup",
+                                        "byte_identical")}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    out.update(walls=walls, wall=round(sum(walls.values()), 2),
+               launches=out["a"]["launches"], card=gpu_line())
+    return out
+
+
 #: phase 16 runs the runner's tables at their fast sizes, but these
-#: three: phases 4, 14 and 15 drive their paths through library calls,
-#: and each of their GAN fits takes ~10 s
-BENCH_SKIP = ("table2_quality", "table5_scale_metrics", "table6_ablation")
+#: four: phases 4, 14 and 15 drive their paths through library calls, and
+#: each of their GAN fits takes ~10 s; phase 17(f) runs
+#: ``cluster_scaling``
+BENCH_SKIP = ("table2_quality", "table5_scale_metrics", "table6_ablation",
+              "cluster_scaling")
 #: phase 16's wall, seconds
 BENCH_BUDGET_S = 60.0
 #: the row names of the tables that return rows, at fast sizes
@@ -3010,12 +3310,19 @@ def main() -> int:
     keep = tempfile.mkdtemp(prefix="chip_smoke_trace_")
     try:
         trace_path = os.path.join(keep, "cli.trace.jsonl")
+        path64 = os.path.join(keep, "struct64")
         stream = phase_datastream(convert, tr, rmat, sampler, ref, rs, torch,
-                                  trace_path)
+                                  trace_path, path64)
         errs["rmat_sample_prng"] = max(errs["rmat_sample_prng"],
                                        stream["err"], stream["refit"]["err"])
         log("datastream: " + json.dumps(stream))
         clock("13")
+        t0 = time.time()
+        scale = phase_scaleout(path64, stream, tr, rs, torch)
+        shutil.rmtree(path64)
+        log(f"scale-out: phase 17 wall {time.time() - t0:.1f}s of its "
+            f"{SCALE_BUDGET_S:.0f}s budget; " + json.dumps(scale))
+        clock("17")
         bench = phase_benchmarks(trace_path, tr, sampler, rs, torch)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
@@ -3043,7 +3350,9 @@ def main() -> int:
                     fidelity_path_launches=fidelity["launches"],
                     fidelity_path_max_abs_err=fidelity["err"],
                     baselines_path_launches=base["launches"],
-                    baselines_path_max_abs_err=base["err"])
+                    baselines_path_max_abs_err=base["err"],
+                    scaleout_path_launches=scale["launches"],
+                    scaleout_examples_launches=scale["e"]["k2"])
     for row in rows:
         if row["name"] in bench["launches"]:
             row.update(bench_path_launches=bench["launches"][row["name"]],

@@ -8,9 +8,9 @@ under ``results/bench_torch/``).  The tables run on the card
 (``--device cuda``, the default); without one it stops with an error
 unless ``--device cpu`` is given.  It exits non-zero if any table fails.
 
-``benchmarks/run.py``'s ``cluster_scaling`` (it needs the multi-process
-generator, ROADMAP A5) and ``roofline`` (it reads the TPU dry-run of
-``launch/``, ROADMAP A7) have no counterpart yet.
+``cluster_scaling`` spawns the generator's CLI (serial, then a 2-worker
+cluster).  ``benchmarks/run.py``'s ``roofline`` (it reads the TPU dry-run
+of ``launch/``, ROADMAP A7) has no counterpart yet.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ TABLES = [
     "feature_throughput",
     "executor_overlap",
     "fit_throughput",
+    "cluster_scaling",
 ]
 
 

@@ -9,7 +9,9 @@ Wide (>31-bit) node ids keep the JAX package's contract: ids are built
 as an ``IdParts(hi, lo)`` pair of int32 words (the first ``bits -
 LO_BITS`` levels push into ``hi``, the rest into ``lo``), so kernel
 outputs compare word for word with the reference.  ``combine_ids``
-reassembles a pair into int64 on the words' own device.
+reassembles a pair into int64 on the words' own device;
+``combine_ids_device`` does the same with a tensor prefix (a mesh step's
+device index).
 """
 from __future__ import annotations
 
@@ -119,6 +121,21 @@ def combine_ids(parts: IdParts, bits: int, dtype, prefix: int = 0
         out = out + (parts.hi.to(dt) << min(bits, LO_BITS))
     if prefix:
         out = out + (int(prefix) << int(bits))
+    return out
+
+
+def combine_ids_device(parts: IdParts, bits: int, dtype,
+                       prefix: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """``combine_ids`` with the prefix a tensor on the words' device (the
+    mesh step's device index): ``(prefix << bits) + (hi << LO) + lo``, no
+    host round trip."""
+    dt = as_torch_dtype(dtype)
+    out = parts.lo.to(dt)
+    if parts.hi is not None:
+        out = out + (parts.hi.to(dt) << min(bits, LO_BITS))
+    if prefix is not None:
+        out = out + (prefix.to(device=out.device, dtype=dt) << int(bits))
     return out
 
 

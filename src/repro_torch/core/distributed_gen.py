@@ -1,26 +1,48 @@
-"""Step-indexed generation on one card (paper App. 10, one device).
+"""Step-indexed generation over a mesh of devices (paper App. 10).
 
-The JAX package runs one generation step as a ``shard_map`` over a TPU
-mesh: device *i* samples ``edges_per_device`` edges under its own seed,
-with the device index as a src-id prefix, and no collective.  On one card
-the mesh has one device: there is no prefix, and a step is a single
-descend whose stream is ``split(fold_in(PRNGKey(0), seed), L)`` with one
-``uniform`` per level — the ``reference`` backend's ``sample_parts`` on
-that key.  ``datastream.DeviceStepShardSource`` drives one step per
-shard; ``step_seeds`` makes every step re-runnable in isolation.
+One generation step draws ``edges_per_device`` edges on every device of a
+mesh with no collective: device *i* descends under its own key
+``fold_in(PRNGKey(0), seeds[i])`` (``split`` into L level keys, one
+``uniform`` per level — the ``reference`` backend's ``sample_parts``)
+and prepends *i* as a src-id prefix above its ``n`` suffix levels, so the
+devices' id ranges are disjoint.  The JAX package runs the same step as a
+``shard_map`` over a TPU mesh; here the mesh is a sequence of torch
+devices whose length is a power of two (entries may repeat a card: the
+devices of one card then run in turn).  ``device_mesh`` is the mesh a
+job takes: every visible card, or the one CPU.
+``datastream.DeviceStepShardSource`` drives one step per shard;
+``step_seeds`` makes every step re-runnable in isolation.
 """
 from __future__ import annotations
+
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import random as trandom
 from repro_torch.core.descend import (as_torch_dtype, check_id_capacity,
-                                      combine_ids)
+                                      combine_ids_device)
 from repro_torch.core.sampler import get_backend
 
-#: devices of a single-card step (the mesh size the manifest records)
-N_DEV = 1
+
+def device_mesh(device="cuda") -> List[torch.device]:
+    """The mesh a step spans on ``device``'s kind: every visible card
+    (``cuda:0 .. cuda:k-1``), or the one CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def mesh_bits(n_dev: int) -> int:
+    """``log2(n_dev)``: the src levels a mesh of ``n_dev`` devices takes
+    as its device prefix."""
+    k = int(n_dev).bit_length() - 1
+    if n_dev < 1 or 2 ** k != n_dev:
+        raise ValueError(f"device count {n_dev} must be a power of two")
+    return k
 
 
 def step_seeds(base_seed: int, step: int, n_dev: int) -> np.ndarray:
@@ -44,18 +66,35 @@ def step_seeds(base_seed: int, step: int, n_dev: int) -> np.ndarray:
 
 
 def device_generate(thetas, seeds, n: int, m: int, edges_per_device: int,
-                    dtype=torch.int32, device="cuda"):
-    """One step on one card: ``(src, dst)`` ids of shape
-    ``(1, edges_per_device)`` in ``dtype`` on ``device``.  ``thetas`` is
-    the full ``(max(n, m), 4)`` table, ``seeds`` the step's one seed."""
+                    mesh: Optional[Sequence] = None, dtype=torch.int32,
+                    device="cuda"):
+    """One step over ``mesh`` (default: the one device ``device``):
+    ``(src, dst)`` ids of shape ``(n_dev, edges_per_device)`` in
+    ``dtype`` on ``mesh[0]``, row *i* drawn on ``mesh[i]`` under
+    ``seeds[i]``.  ``n`` is the src suffix levels below the device prefix
+    (``log2(n_dev)`` bits), ``m`` the dst levels; ``thetas`` is the full
+    ``(L, 4)`` table, of which the descend reads ``max(n, m)`` rows."""
+    mesh = [torch.device(d) for d in
+            (mesh if mesh is not None else [device])]
+    n_dev = len(mesh)
+    k_pref = mesh_bits(n_dev)
     seeds = np.asarray(seeds).reshape(-1)
-    if len(seeds) != N_DEV:
-        raise ValueError(f"a single-card step takes {N_DEV} seed, got "
-                         f"{len(seeds)}")
+    if len(seeds) != n_dev:
+        raise ValueError(f"a step over {n_dev} device(s) takes {n_dev} "
+                         f"seeds, got {len(seeds)}")
     dt = as_torch_dtype(dtype)
-    check_id_capacity(n, dt, "device_generate: src level bits")
+    # device prefix bits + level bits must fit the id dtype
+    check_id_capacity(n + k_pref, dt,
+                      "device_generate: device prefix + src level bits")
     check_id_capacity(m, dt, "device_generate: dst level bits")
-    key = trandom.fold_in(trandom.PRNGKey(0), int(seeds[0]))
-    sp, dp = get_backend("reference").sample_parts(
-        key, thetas, n, m, edges_per_device, torch.device(device))
-    return combine_ids(sp, n, dt)[None], combine_ids(dp, m, dt)[None]
+    ref = get_backend("reference")
+    rows_s, rows_d = [], []
+    for i, dev in enumerate(mesh):
+        key = trandom.fold_in(trandom.PRNGKey(0), int(seeds[i]))
+        sp, dp = ref.sample_parts(key, thetas, n, m, edges_per_device, dev)
+        didx = torch.tensor(i, dtype=torch.int32, device=dev)
+        rows_s.append(combine_ids_device(sp, n, dt, prefix=didx))
+        rows_d.append(combine_ids_device(dp, m, dt))
+    home = mesh[0]
+    return (torch.stack([r.to(home) for r in rows_s]),
+            torch.stack([r.to(home) for r in rows_d]))

@@ -29,8 +29,6 @@ import math
 from typing import Optional, Tuple
 
 import numpy as np
-from scipy.optimize import minimize
-from scipy.special import gammaln
 
 from repro_torch.core.fit_engine import BitPairMLE
 from repro_torch.graph.ops import Graph, degree_histogram, in_degrees, \
@@ -86,6 +84,7 @@ def expected_degree_hist(p: float, levels: int, E: int, kmax: int,
     """Eq. 7/8: E[#nodes with degree k] for k in ``ks`` under marginal prob
     ``p`` and ``levels`` bits.  Log-space binomials; Poisson-safe for huge E.
     """
+    from scipy.special import gammaln
     if ks is None:
         ks = np.arange(kmax + 1)
     ks = ks.astype(np.float64)
@@ -142,6 +141,9 @@ def fit_marginals_hist(obs_out: np.ndarray, obs_in: np.ndarray, E: int,
     histograms: a 7×7 grid, then Nelder-Mead, inside ±``trust`` of
     ``anchor`` (the bit-pair MLE marginals) when given; the anchor wins
     if the optimum scores worse."""
+    # scipy is imported on use, so processes that only sample (the
+    # cluster's workers) do not pay for it at start
+    from scipy.optimize import minimize
     ks = np.arange(kmax + 1)
     obs_out = np.asarray(obs_out, np.float64)
     obs_in = np.asarray(obs_in, np.float64)

@@ -7,7 +7,8 @@ A thin planner/facade over the focused layers of the subsystem:
   ``(fit, seed, shard_id)``.  Two sources exist: ``ChunkShardSource``
   (``mode="chunks"``, θ-weighted chunk plan — full distributional
   fidelity) and ``DeviceStepShardSource`` (``mode="device_steps"``,
-  step-indexed seeds on one card).
+  step-indexed seeds over a mesh of devices, every visible card by
+  default).
 * ``repro_torch.datastream.executor`` — ``ShardExecutor``: the staged
   pipeline overlapping struct sampling on the card, the feature draw and
   alignment, and the writer's flush (``pipeline_depth=0`` is the exact
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.descend import check_id_capacity, default_id_dtype
-from repro_torch.core.distributed_gen import N_DEV
+from repro_torch.core.distributed_gen import device_mesh
 from repro_torch.core.sampler import resolve_backend
 from repro_torch.core.structure import KroneckerFit
 from repro_torch.datastream.executor import ShardExecutor
@@ -56,8 +57,8 @@ from repro_torch.utils import accepts_kwarg
 __all__ = ["DatasetJob", "FeatureSpec"]
 
 #: stream marker recorded for device_steps manifests — the JAX package's
-#: (its steps draw all L level keys with one split), which a single-card
-#: step reproduces; a resume across a stream change must refuse.
+#: (its steps draw all L level keys with one split), which the port's
+#: mesh step reproduces; a resume across a stream change must refuse.
 _DEVICE_STREAM = "device_descend_v2"
 
 
@@ -89,7 +90,10 @@ class DatasetJob:
 
     ``device`` is where the struct stage samples (``cuda`` by default; a
     job on a card that is not there fails at construction, before a
-    manifest is written).  Features run on their generator's device."""
+    manifest is written).  Features run on their generator's device.
+    ``mode="device_steps"`` spans ``mesh`` (default
+    ``distributed_gen.device_mesh(device)``: every visible card, or the
+    one CPU); the manifest records its size as ``n_dev``."""
 
     def __init__(self, fit: KroneckerFit, out_dir: str,
                  shard_edges: int = 1 << 20, seed: int = 0,
@@ -101,7 +105,7 @@ class DatasetJob:
                  fused: bool = False,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         assert mode in ("chunks", "device_steps"), mode
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -126,6 +130,13 @@ class DatasetJob:
         self.tracer = tracer
         self.metrics = metrics
         self.dtype = _edge_dtype(fit, id_dtype)
+        # device_steps: the mesh a step spans (its size is recorded and
+        # validated: step seeds and per-device shapes depend on it)
+        self.mesh = None
+        if mode == "device_steps":
+            self.mesh = (list(mesh) if mesh is not None
+                         else device_mesh(self.device))
+        self.n_dev = len(self.mesh) if self.mesh is not None else None
         # per-stage wall time of the last run() call (README "timings"):
         # busy seconds per stage plus wall_s/overlap from the executor,
         # all derived from the run's span aggregates (repro_torch.obs)
@@ -174,8 +185,7 @@ class DatasetJob:
                     self.fit, self.scheduler.thetas, self.shard_edges,
                     self.seed, self.dtype,
                     fused=self.fused, features=self.features,
-                    feature_batch=self._feature_batch(),
-                    device=self.device)
+                    feature_batch=self._feature_batch(), mesh=self.mesh)
         return self._source
 
     def _feature_batch(self) -> Optional[int]:
@@ -246,7 +256,7 @@ class DatasetJob:
             theta=[[float(x) for x in row] for row in self.scheduler.thetas],
             theta_digest=self.scheduler.theta_digest, mode=self.mode,
             backend=self.backend,
-            n_dev=(N_DEV if self.mode == "device_steps" else None),
+            n_dev=self.n_dev,
             features=self._features_meta(),
             executor={"pipeline_depth": self.pipeline_depth,
                       "host_workers": self.host_workers,
@@ -429,7 +439,7 @@ class DatasetJob:
                 "dtype": np.dtype(self.dtype).name,
                 "theta_digest": self.scheduler.theta_digest,
                 # step seeds and per-device shapes depend on mesh size
-                "n_dev": (N_DEV if self.mode == "device_steps" else None),
+                "n_dev": self.n_dev,
                 # a resumed job must produce the same columns per shard
                 # (and, for batched generators, the same feature stream)
                 "features": self._features_meta()}

@@ -75,11 +75,15 @@ class FeatureSpec:
     its shard ends.  ``feat_s``/``align_s`` accumulate wall time so the
     pipeline can report feature/align cost apart from structure; the
     executor's host stage may draw several shards concurrently, so the
-    accumulation is lock-guarded.  The draws and the alignment run on the
-    generator's ``device`` (the CPU for generators without one)."""
+    accumulation is lock-guarded.  The draws and the alignment run on
+    ``device``; None means the generator's ``device`` (the CPU for
+    generators without one).  A planner that holds the weights elsewhere
+    than the workers that draw (the cluster coordinator) names the
+    workers' device here, and the manifest records it."""
     generator: Any                      # .sample(rng, n) -> (cont, cat)
     aligner: Any = None                 # .align(g, cont, cat, rng)
     batch: Optional[int] = None
+    device: Any = None
     feat_s: float = 0.0
     align_s: float = 0.0
     tracer: Any = NULL_TRACER           # set by the executor's _adopt_obs
@@ -88,6 +92,8 @@ class FeatureSpec:
 
     @property
     def work_device(self) -> torch.device:
+        if self.device is not None:
+            return torch.device(self.device)
         return torch.device(getattr(self.generator, "device", "cpu"))
 
     def describe(self) -> dict:
@@ -397,7 +403,10 @@ class ChunkShardSource(ShardSource):
 class DeviceStepShardSource(ShardSource):
     """One ``device_generate`` step == one shard; the step index (==
     shard id) seeds the step's stream, so any step can be regenerated in
-    isolation."""
+    isolation.  The step spans ``mesh`` (a sequence of torch devices,
+    e.g. ``distributed_gen.device_mesh``): each of its ``n_dev`` devices
+    draws ``ceil(shard_edges / n_dev)`` edges under its own seed, its index
+    the top ``log2(n_dev)`` src levels."""
 
     name = "device_steps"
 
@@ -405,8 +414,8 @@ class DeviceStepShardSource(ShardSource):
                  shard_edges: int, seed: int, dtype,
                  fused: bool = False,
                  features: Optional[FeatureSpec] = None,
-                 feature_batch: Optional[int] = None, device="cuda"):
-        from repro_torch.core.distributed_gen import N_DEV
+                 feature_batch: Optional[int] = None, mesh=("cuda",)):
+        from repro_torch.core.distributed_gen import mesh_bits
         self.fit = fit
         self.thetas = np.asarray(thetas)
         self.shard_edges = int(shard_edges)
@@ -415,15 +424,17 @@ class DeviceStepShardSource(ShardSource):
         self.fused = bool(fused)
         self.features = features
         self.feature_batch = feature_batch
-        self.device = torch.device(device)
-        self.n_dev = N_DEV
+        self.mesh = list(mesh)
+        self.n_dev = len(self.mesh)
+        # the device index takes the top src levels
+        self.n_loc = self.fit.n - mesh_bits(self.n_dev)
 
     def generate(self, rec: ShardRecord) -> Dict[str, np.ndarray]:
         from repro_torch.core.distributed_gen import (device_generate,
                                                       step_seeds)
 
-        # full θ rows: the descend runs max(n, m) levels; with one device
-        # no src level goes to a device prefix
+        # full θ rows: the descend runs max(n_loc, m) levels (dst keeps
+        # all m levels; only src loses its top levels to the prefix)
         epd = math.ceil(self.shard_edges / self.n_dev)
         draw, _, n_blocks = (_feature_plan(self.features,
                                            self.feature_batch, rec.n_edges)
@@ -432,14 +443,13 @@ class DeviceStepShardSource(ShardSource):
         with self.tracer.span(span, shard=rec.shard_id):
             with profile.annotation(span):
                 seeds = step_seeds(self.seed, rec.shard_id, self.n_dev)
-                src, dst = device_generate(self.thetas, seeds, self.fit.n,
-                                           self.fit.m, epd,
-                                           dtype=as_torch_dtype(self.dtype),
-                                           device=self.device)
+                src, dst = device_generate(self.thetas, seeds, self.n_loc,
+                                           self.fit.m, epd, mesh=self.mesh,
+                                           dtype=as_torch_dtype(self.dtype))
                 host = _finish_copy(_start_copy(
                     (src.reshape(-1)[: rec.n_edges],
                      dst.reshape(-1)[: rec.n_edges]),
-                    _side_stream(self.device)))
+                    _side_stream(src.device)))
                 arrays = {"src": host[0].numpy(), "dst": host[1].numpy()}
                 if n_blocks:
                     arrays["cont"], arrays["cat"] = _fused_features(

@@ -15,6 +15,15 @@ with KroneckerFit fields ({"a":..,"b":..,"c":..,"d":..,"n":..,"m":..,
 "E":..}) and writes structure only; ``--asset`` takes a saved fit
 (``repro_torch.convert.save_state``) and writes its features and
 alignment beside the structure.  The output is the JAX package's format.
+
+``--num-workers K`` plans once and stripes the plan across K spawned
+worker processes (``repro_torch.distributed.cluster``), each running
+``python -m repro_torch.scripts.generate_dataset ... --worker-id k``;
+their journals merge into the one manifest, byte-identical to the
+single-process run.  On one card the workers share it.  With ``--trace``
+each worker writes ``trace.w{k}.jsonl`` (``--metrics-out M.json``:
+``M.w{k}.json``); ``python -m repro_torch.scripts.report_run
+OUT/trace.w*.jsonl`` merges them.
 """
 from __future__ import annotations
 
@@ -72,7 +81,127 @@ def build_asset(args):
     return fit, features
 
 
-def main(argv=None) -> int:
+def plan_asset(args):
+    """``build_asset`` for the coordinator: the fit loaded on the CPU
+    (the coordinator makes no CUDA context; each worker holds its own on
+    the card), its features planned on the workers' ``--device``."""
+    from repro_torch.datastream import FeatureSpec
+    fit, features = build_asset(argparse.Namespace(**dict(
+        vars(args), device="cpu")))
+    if features is not None:
+        features = FeatureSpec(features.generator, features.aligner,
+                               device=args.device)
+    return fit, features
+
+
+def worker_path(path: str, worker_id: int) -> str:
+    """Namespace a per-run artifact path for one worker process:
+    ``trace.jsonl`` -> ``trace.w0.jsonl``."""
+    root, ext = os.path.splitext(path)
+    return f"{root}.w{int(worker_id)}{ext}"
+
+
+def worker_flags(args, worker_id: int, num_workers: int) -> list:
+    """Rebuild the CLI flags for one spawned worker stripe from the
+    coordinator's parsed args.  Everything byte-relevant (fit or asset,
+    scale, seed, shard size, mode, backend, dtype, device) passes through
+    unchanged; the stripe is selected by ``--num-workers/--worker-id``;
+    per-worker artifacts (trace, metrics, profile) keep the parent's flag
+    and are namespaced by the worker itself."""
+    flags = (["--asset", args.asset] if args.asset
+             else ["--fit", args.fit])
+    flags += ["--out", args.out,
+              "--scale-nodes", str(args.scale_nodes),
+              "--shard-edges", args.shard_edges,
+              "--seed", str(args.seed), "--mode", args.mode,
+              "--device", args.device,
+              "--num-workers", str(num_workers),
+              "--worker-id", str(worker_id),
+              "--pipeline-depth", str(args.pipeline_depth),
+              "--host-workers", str(args.host_workers)]
+    if args.edges:
+        flags += ["--edges", args.edges]
+    if args.k_pref is not None:
+        flags += ["--k-pref", str(args.k_pref)]
+    if args.noise:
+        flags += ["--noise", str(args.noise)]
+    if args.backend:
+        flags += ["--backend", args.backend]
+    if args.id_dtype:
+        flags += ["--id-dtype", args.id_dtype]
+    if args.max_shards is not None:
+        flags += ["--max-shards", str(args.max_shards)]
+    if args.fused:
+        flags += ["--fused"]
+    if args.serial:
+        flags += ["--serial"]
+    if args.trace is not None:
+        flags += (["--trace"] if args.trace == "auto"
+                  else ["--trace", args.trace])
+    if args.metrics_out:
+        flags += ["--metrics-out", args.metrics_out]
+    if args.torch_profile:
+        flags += ["--torch-profile", args.torch_profile]
+    return flags
+
+
+def run_cluster(args, job, kill_after=None) -> int:
+    """Coordinator mode: plan once, stripe across ``--num-workers``
+    spawned processes, merge journals into the one manifest.
+    ``kill_after`` (``{worker_id: shards}``) is the coordinator's
+    fault-injection hook."""
+    from repro_torch.datastream import Manifest, ShardedGraphDataset
+    from repro_torch.distributed.cluster import (ClusterCoordinator,
+                                                 ClusterError)
+    from repro_torch.distributed.launcher import python_argv
+
+    if args.resume and Manifest.exists(args.out):
+        job._load_validated()      # refuse resumes that change streams
+    else:
+        try:
+            job.plan(overwrite=args.resume)
+        except FileExistsError:
+            raise SystemExit(
+                f"error: {args.out} already holds a dataset — pass "
+                "--resume to continue it, or choose a different --out")
+    coord = ClusterCoordinator(
+        args.out,
+        lambda w, W: python_argv("-m", "repro_torch.scripts."
+                                 "generate_dataset",
+                                 *worker_flags(args, w, W)),
+        num_workers=args.num_workers, kill_after=kill_after,
+        log=lambda msg: print(f"cluster: {msg}", file=sys.stderr))
+    t0 = time.time()
+    try:
+        manifest = coord.run()
+    except ClusterError as e:
+        raise SystemExit(f"error: {e}")
+    dt = time.time() - t0
+    done = manifest.done_edges()
+    rounds = coord.report["rounds"]
+    print(f"cluster: materialized {len(manifest.done_ids())}/"
+          f"{len(manifest.shards)} shards, {done:,} edges in {dt:.1f}s "
+          f"({done / max(dt, 1e-9):,.0f} edges/s) across "
+          f"{args.num_workers} worker(s), {len(rounds)} round(s), "
+          f"{sum(r['deaths'] for r in rounds)} death(s)",
+          file=sys.stderr)
+    print("cluster report: " + json.dumps(coord.report), file=sys.stderr)
+    if args.trace is not None:
+        print(f"traces: {args.out}/trace.w*.jsonl (python -m "
+              f"repro_torch.scripts.report_run trace.w0.jsonl "
+              f"trace.w1.jsonl ... for the merged stall report)",
+              file=sys.stderr)
+    if args.verify or args.verify_deep:
+        problems = ShardedGraphDataset(args.out).verify(deep=True)
+        if problems:
+            print("VERIFY FAILED:", *problems, sep="\n  ",
+                  file=sys.stderr)
+            return 1
+        print("verify: ok (deep, streamed crc)", file=sys.stderr)
+    return 0
+
+
+def main(argv=None, kill_after=None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -114,6 +243,24 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where structure (and, with --asset, features) "
                          "are generated: 'cuda' (default) or 'cpu'")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="worker queues in the plan (see --worker)")
+    ap.add_argument("--worker", type=int, default=None,
+                    help="only materialize this worker's shard queue")
+    ap.add_argument("--num-workers", type=int, default=None,
+                    help="multi-PROCESS generation: spawn this many "
+                         "worker processes, each running one stripe of "
+                         "the plan, and merge their journals into the "
+                         "one manifest (repro_torch.distributed.cluster). "
+                         "Output is byte-identical to the single-process "
+                         "run. With --worker-id, run one stripe instead "
+                         "of spawning")
+    ap.add_argument("--worker-id", type=int, default=None,
+                    help="run ONE stripe of an existing plan as this "
+                         "worker (0..K-1 of --num-workers K): appends "
+                         "completions to journal.w{k}.jsonl and never "
+                         "rewrites manifest.json — what the cluster "
+                         "coordinator spawns")
     ap.add_argument("--max-shards", type=int, default=None,
                     help="stop after N shards (incremental progress)")
     ap.add_argument("--resume", action="store_true",
@@ -150,6 +297,20 @@ def main(argv=None) -> int:
                     help="additionally run torch.profiler over the run "
                          "and write its Chrome trace into DIR")
     args = ap.parse_args(argv)
+    if args.worker_id is not None and args.num_workers is None:
+        ap.error("--worker-id needs --num-workers (the stripe count "
+                 "the plan was made for)")
+    if args.num_workers is not None:
+        if args.num_workers < 1:
+            ap.error(f"--num-workers {args.num_workers} < 1")
+        if args.workers != 1 or args.worker is not None:
+            ap.error("--num-workers (multi-process) and "
+                     "--workers/--worker (in-process striping) are "
+                     "mutually exclusive")
+        if args.worker_id is not None \
+                and not 0 <= args.worker_id < args.num_workers:
+            ap.error(f"--worker-id {args.worker_id} outside "
+                     f"0..{args.num_workers - 1}")
 
     import numpy as np
 
@@ -159,22 +320,30 @@ def main(argv=None) -> int:
                                  profile, write_bench)
     from repro_torch.utils import parse_count
 
+    coordinator = args.num_workers is not None and args.worker_id is None
     if args.asset:
-        fit, features = build_asset(args)
+        fit, features = (plan_asset if coordinator else build_asset)(args)
     else:
         fit, features = build_fit(args), None
     tracer = Tracer()
     metrics = MetricsRegistry()
     trace_path = None
-    if args.trace is not None:
+    if args.trace is not None and not coordinator:
+        # the coordinator generates nothing — its workers each record
+        # their own namespaced trace (trace.w{k}.jsonl)
         trace_path = (os.path.join(args.out, "trace.jsonl")
                       if args.trace == "auto" else args.trace)
+        if args.worker_id is not None:
+            trace_path = worker_path(trace_path, args.worker_id)
         os.makedirs(os.path.dirname(trace_path) or ".", exist_ok=True)
         tracer.add_sink(JsonlSink(trace_path))
     try:
         job = DatasetJob(fit, args.out,
                          shard_edges=parse_count(args.shard_edges),
                          seed=args.seed, k_pref=args.k_pref,
+                         num_workers=(args.num_workers
+                                      if args.num_workers is not None
+                                      else args.workers),
                          double_buffered=not args.serial, mode=args.mode,
                          features=features, backend=args.backend,
                          id_dtype=args.id_dtype,
@@ -195,17 +364,28 @@ def main(argv=None) -> int:
           f"pipeline_depth={job.pipeline_depth}, "
           f"host_workers={job.host_workers}, fused={job.fused}",
           file=sys.stderr)
+    if coordinator:
+        tracer.close()
+        return run_cluster(args, job, kill_after=kill_after)
     rs.reset_launches()
+    profile_dir = args.torch_profile
+    if profile_dir and args.worker_id is not None:
+        profile_dir = worker_path(profile_dir, args.worker_id)
     t0 = time.time()
     try:
-        with profile.trace(args.torch_profile):
-            manifest = job.run(resume=args.resume,
-                               max_shards=args.max_shards)
+        with profile.trace(profile_dir):
+            if args.worker_id is not None:
+                manifest = job.run_worker(args.worker_id,
+                                          max_shards=args.max_shards)
+            else:
+                manifest = job.run(resume=args.resume,
+                                   max_shards=args.max_shards,
+                                   worker=args.worker)
     except FileExistsError:
         raise SystemExit(f"error: {args.out} already holds a dataset — "
                          "pass --resume to continue it, or choose a "
                          "different --out")
-    except ValueError as e:
+    except (FileNotFoundError, ValueError) as e:
         raise SystemExit(f"error: {e}")
     finally:
         tracer.close()
@@ -224,10 +404,17 @@ def main(argv=None) -> int:
     if trace_path:
         print(f"trace: {trace_path}", file=sys.stderr)
     if args.metrics_out:
+        metrics_path = (worker_path(args.metrics_out, args.worker_id)
+                        if args.worker_id is not None
+                        else args.metrics_out)
         write_bench("generate_dataset",
                     {"timings": t, "launches": dict(rs.LAUNCHES),
-                     "registry": metrics.snapshot()}, args.metrics_out)
-        print(f"metrics: {args.metrics_out}", file=sys.stderr)
+                     "registry": metrics.snapshot()}, metrics_path)
+        print(f"metrics: {metrics_path}", file=sys.stderr)
+    if args.worker_id is not None:
+        # one stripe of a larger run: completeness, verification and the
+        # manifest compaction belong to the coordinator
+        return 0
     if manifest.is_complete():
         ds = ShardedGraphDataset(args.out)
         assert ds.total_edges == fit.E
@@ -238,7 +425,7 @@ def main(argv=None) -> int:
                       file=sys.stderr)
                 return 1
             print("verify: ok (deep, streamed crc)", file=sys.stderr)
-    elif not args.max_shards:
+    elif not args.max_shards and args.worker is None:
         return 1
     return 0
 

@@ -48,12 +48,11 @@ def jax_runner(monkeypatch):
 
 
 def test_tables_are_the_jax_runners_but_two(jax_runner):
-    """Every JAX table but ``cluster_scaling`` (ROADMAP A5) and
-    ``roofline`` (A7), in the JAX runner's order, each a module with
-    ``run(fast, device)``."""
+    """Every JAX table but ``roofline`` (A7), in the JAX runner's order,
+    each a module with ``run(fast, device)``."""
     assert bench_run.TABLES == [t for t in jax_runner.TABLES
-                                if t not in ("cluster_scaling", "roofline")]
-    assert len(bench_run.TABLES) == 13
+                                if t != "roofline"]
+    assert len(bench_run.TABLES) == 14
     for name in bench_run.TABLES:
         mod = __import__(f"repro_torch.benchmarks.{name}",
                          fromlist=["run"])

@@ -22,7 +22,9 @@ and SBM ids, KDE and Random rows, ``sample_erdos_renyi``) give the CPU's
 bytes exactly: the same numpy draws, integer work and IEEE float64
 arithmetic on the card.  The benchmarks' ``timeit`` of a K2 draw covers
 the draw's CUDA-event time, and Fig. 8 times its three backends on the
-card, each at most its H100 bound."""
+card, each at most its H100 bound.  A 2-worker cluster sharing the card
+writes the card's serial bytes, and a mesh step of four entries on one
+card gives the CPU's ids exactly."""
 import numpy as np
 import pytest
 import torch
@@ -861,3 +863,51 @@ def test_fig8_on_card_under_its_bound(cuda, tmp_path, monkeypatch):
     for ids in got:
         for a, b in zip(ids, want):
             torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+
+
+def test_cluster_on_card_equals_serial(cuda, tmp_path):
+    """Two worker processes sharing the card (``--num-workers 2``, the
+    auto backend: K2) write the card's serial run byte for byte, and
+    their metrics count one K2 launch a chunk between them."""
+    import dataclasses
+    import json
+    import os
+
+    from repro_torch.core.structure import KroneckerFit
+    from repro_torch.datastream import DatasetJob, Manifest
+    from repro_torch.scripts import generate_dataset as gen_cli
+    fit = KroneckerFit(*TH, n=16, m=13, E=3_000_001)
+    fit_json = str(tmp_path / "fit.json")
+    with open(fit_json, "w") as f:
+        json.dump(dataclasses.asdict(fit), f)
+    serial, cluster = str(tmp_path / "serial"), str(tmp_path / "cluster")
+    job = DatasetJob(fit, serial, shard_edges=1 << 19, seed=4)
+    job.run()
+    assert gen_cli.main(["--fit", fit_json, "--shard-edges", str(1 << 19),
+                         "--seed", "4", "--out", cluster, "--num-workers",
+                         "2", "--metrics-out",
+                         str(tmp_path / "m.json"), "--verify"]) == 0
+    shards = {k: v for k, v in _tree_hashes(serial).items()
+              if k != "manifest.json"}
+    assert shards == {k: v for k, v in _tree_hashes(cluster).items()
+                      if k != "manifest.json"}
+    assert Manifest.load(cluster).num_workers == 2
+    launches = [json.load(open(tmp_path / f"m.w{k}.json"))["metrics"][
+        "launches"]["rmat_sample_prng"] for k in (0, 1)]
+    assert sum(launches) == len(job.scheduler.chunks) and min(launches) > 0
+    assert sorted(os.listdir(cluster)).count("worker.w1.log") == 1
+
+
+def test_device_generate_mesh_of_four_on_card_equals_cpu(cuda):
+    """A mesh of four entries all on ``cuda:0`` gives the CPU's ids."""
+    from repro_torch.core import distributed_gen as dg
+    th = np.random.default_rng(0).dirichlet(np.ones(4), 33)
+    seeds = dg.step_seeds(3, 1, 4)
+    for dtype, n in ((torch.int32, 18), (torch.int64, 33)):
+        got = dg.device_generate(th, seeds, n, 20, 1 << 16,
+                                 mesh=["cuda:0"] * 4, dtype=dtype)
+        want = dg.device_generate(th, seeds, n, 20, 1 << 16,
+                                  mesh=["cpu"] * 4, dtype=dtype)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.shape == (4, 1 << 16)
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)

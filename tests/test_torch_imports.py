@@ -37,4 +37,7 @@ def test_scan_sees_the_package():
             "executor.py", "service.py", "distributed_gen.py", "trace.py",
             "generate_dataset.py", "fitsource.py", "fit_dataset.py",
             "gnn.py", "bounds.py", "export.py", "report_run.py",
-            "fig8_throughput.py", "feature_throughput.py"} <= names
+            "fig8_throughput.py", "feature_throughput.py", "cluster.py",
+            "launcher.py", "cluster_scaling.py", "quickstart.py",
+            "serve_batched.py", "trillion_edge_plan.py",
+            "pretrain_finetune_gnn.py"} <= names
