@@ -9,8 +9,8 @@ graph generation (phases 2-7), fitting (phase 4b), writing datasets to
 disk (phase 13) and across worker processes (phase 17), scoring what it
 generates (phase 14), the paper's baselines (phase 15), the paper's
 benchmark tables (phase 16), the dense
-LM's scoring forward and serving engine (phases 8-10) and the toolchain
-probes S1-S4 (phase 12):
+LM's scoring forward and serving engine (phases 8-10), training it
+(phase 18) and the toolchain probes S1-S4 (phase 12):
 
 1. build the kernels; print the card's name and power limit; read the
    built SASS: the in-register R-MAT kernel's level loop, and the
@@ -215,6 +215,28 @@ probes S1-S4 (phase 12):
     fast size, ``byte_identical``.  The wall is logged beside
     ``SCALE_BUDGET_S``; K2's row carries ``scaleout_path_launches`` (a) and
     ``scaleout_examples_launches`` (e).
+18. training (run after phase 10, ``phase_training``): (a) full-width
+    ``tinyllama-1.1b`` (22 layers, bf16, its config's 2 microbatches,
+    einsum attention, remat ``"nothing"``; weights from
+    ``init_params(PRNGKey(0))``, phase 9's) trained by ``Trainer`` for 6
+    steps on B = 8 × S = 2048 tokens of a ``GraphWalkCorpus`` over the
+    asset's ×1 ``generate`` (K2, held against its plain stream): every
+    loss and grad norm finite, grad norms > 0, after step 1 every master
+    moved and every leaf's first moment nonzero (no gradient cut); step
+    ms, tokens/s, the model-FLOPs share (8·N·tokens over the bf16 dense
+    peak) and peak memory beside the card's name and power limit; (b) the
+    train step on the card against the CPU at the smoke width in float32
+    (TF32 off), the same params, state and 2 batches: losses within
+    ``CARD_CPU_LOSS_TOL``, masters within ``CARD_CPU_MASTER_TOL``; (c) at
+    the fifth example's width, 10 steps with checkpoints every 5, a new
+    ``Trainer`` resumed to 20 (history from step 11) against 20
+    uninterrupted steps on the same batches (masters within 2·lr a step,
+    bit equality logged), and a fault injected at step 12 recovered to
+    20; (d) ``examples.train_lm_on_graph_corpus`` in-process at
+    ``EXAMPLE_STEPS`` (its graph through K2, held against the plain
+    stream): last-10 loss below first-10.  The wall is logged beside
+    ``TRAIN_BUDGET_S``; K2's row carries ``train_path_launches`` and
+    ``train_path_max_abs_err``.
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
 ``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
@@ -2904,6 +2926,278 @@ def phase_serving(model, params, ServingEngine, Request, fa, torch):
         "alone")
 
 
+#: phase 18: its wall is logged beside this budget
+TRAIN_BUDGET_S = 45.0
+#: phase 18(a): tinyllama-1.1b's training batch, steps and warmup
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP = 8, 2048, 6, 2
+#: phase 18(b): card against CPU, float32 at the smoke width: losses
+#: within 1e-4; masters within 5e-5, a tenth of the lr (Adam's first
+#: update lr·g/(|g| + 1e-8) turns last-bit gradient differences of weights
+#: whose gradient is near 1e-8 into a part of lr)
+CARD_CPU_LOSS_TOL, CARD_CPU_MASTER_TOL = 1e-4, 5e-5
+#: phase 18(d): the fifth example's steps (300 by default), a depth cut for
+#: the phase's wall (100 steps took 14.9 s, most of it ~84 ms steps)
+EXAMPLE_STEPS = 50
+
+
+def k2_unchunked_vs_plain(g, fit, label: str, tr, rmat, sampler, ref, rs,
+                          torch) -> int:
+    """K2 at the shape ``generate(seed=0)`` (unchunked) of ``fit`` gave
+    it, with the run's own per-level θ: the kernel and the run's edges
+    against the plain stream.  Returns the max error."""
+    import numpy as np
+    thetas = rmat.derive_thetas(fit, rng=np.random.default_rng(0))
+    th = torch.tensor(thetas, dtype=torch.float32, device="cuda")
+    E = fit.E
+    pad = sampler._pad_edges(E, sampler.choose_block(E))
+    key = tr.PRNGKey(0)
+    want = ref.rmat_prng_ref(key, th, fit.n, fit.m, E, pad)
+    e_kern = max_word_err(rs.rmat_sample_prng(key, th, fit.n, fit.m, E, pad),
+                          want)
+    e_run = max(int((g.src.to(torch.int64) - want[0].lo).abs().max()),
+                int((g.dst.to(torch.int64) - want[1].lo).abs().max()))
+    log(f"{label}: K2 at n={fit.n} m={fit.m} E={E} stride={pad}, per-level "
+        f"θ: max|err| prng-vs-plain={e_kern} run-vs-plain={e_run}")
+    return max(e_kern, e_run)
+
+
+def phase_training(convert, tr, rmat, sampler, ref, rs, fa, get_config,
+                   Model, torch) -> dict:
+    """Training: (a) full-width tinyllama-1.1b on a walk corpus over the
+    asset's x1 graph, (b) the train step card against CPU, (c) checkpoint,
+    resume and fault recovery at the fifth example's width, (d) the fifth
+    example in-process.  Returns the phase's numbers, K2's launches on its
+    path and K2's max error at the shapes that path gave it."""
+    import numpy as np
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.data.pipeline import GraphWalkCorpus, SyntheticTokens
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.examples import train_lm_on_graph_corpus as example
+    from repro_torch.kernels.bounds import PEAK_FLOPS
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.steps import make_train_step
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    from repro_torch.utils import tree_size
+
+    out, walls = {}, {}
+    card = gpu_line()
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # (a) full width: the corpus over the asset's x1 generate (K2)
+        t0 = time.time()
+        pipe = convert.pipeline_from_state(convert.load_state(ASSET),
+                                           device="cuda")
+        rs.reset_launches()
+        g, _, _ = pipe.generate(seed=0)
+        torch.cuda.synchronize()
+        k2 = rs.LAUNCHES["rmat_sample_prng"]
+        check(k2 > 0, "18(a): the x1 generate never ran K2")
+        err = k2_unchunked_vs_plain(g, pipe.struct.scaled(1), "18(a) corpus",
+                                    tr, rmat, sampler, ref, rs, torch)
+        cfg = get_config(LM_ARCH).replace(attn_impl="einsum", remat=True,
+                                          remat_policy="nothing")
+        check(cfg.microbatches == 2, f"{LM_ARCH}: microbatches "
+              f"{cfg.microbatches}, not its config's 2")
+        corpus = GraphWalkCorpus(g, vocab=cfg.vocab)
+        model = Model(cfg, "cuda")
+        n_params = tree_size(model.abstract_params())
+        trainer = Trainer(model, opt.OptConfig(warmup_steps=TRAIN_WARMUP,
+                                               total_steps=TRAIN_STEPS),
+                          TrainerConfig(total_steps=TRAIN_STEPS,
+                                        log_every=1000))
+        inner, first = trainer.step_fn, {}
+
+        def step_fn(params, opt_state, batch):
+            if first:
+                return inner(params, opt_state, batch)
+            before = [w.detach().clone() for w in leaves(params.tree())]
+            params, opt_state, m = inner(params, opt_state, batch)
+            first.update(moved=[bool((m != w.float()).any()) for w, m in
+                                zip(before, leaves(opt_state.master))],
+                         grads=[bool(mu.any()) for mu in
+                                leaves(opt_state.mu)])
+            return params, opt_state, m
+
+        trainer.step_fn = step_fn
+        walls["a_setup"] = time.time() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.time()
+        params, opt_state = trainer.fit(tr.PRNGKey(0),
+                                        corpus.batches(TRAIN_B, TRAIN_S))
+        torch.cuda.synchronize()
+        walls["a_train"] = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        hist = trainer.history
+        check(len(hist) == TRAIN_STEPS, f"18(a): {len(hist)} steps")
+        check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                  and h["grad_norm"] > 0 for h in hist),
+              f"18(a): a loss or grad norm not finite and positive: {hist}")
+        check(all(first["moved"]) and all(first["grads"]),
+              f"18(a): after step 1, masters moved {first['moved']}, "
+              f"gradients reached {first['grads']}")
+        check(fa.LAUNCHES["flash_attention"] == 0,
+              "18(a): the einsum path ran the flash kernel")
+        check(int(opt_state.step) == TRAIN_STEPS, "18(a): the step count")
+        step_s = float(np.median([h["dt"] for h in hist[1:]]))
+        tokens = TRAIN_B * TRAIN_S
+        flops = 8 * n_params * tokens     # 6N per token, +2N remat forward
+        out["a"] = {
+            "params": n_params, "B": TRAIN_B, "S": TRAIN_S,
+            "microbatches": cfg.microbatches, "remat": cfg.remat_policy,
+            "steps": TRAIN_STEPS,
+            "loss": [h["loss"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "step_ms": [h["dt"] * 1e3 for h in hist],
+            "step_ms_median_2_on": step_s * 1e3,
+            "tokens_per_s": tokens / step_s,
+            "model_flops_share": flops / step_s / PEAK_FLOPS["bfloat16"],
+            "peak_mem_GB": peak, "card": card}
+        log(f"training (a): {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+            f"{n_params} params {cfg.dtype}, B={TRAIN_B} x S={TRAIN_S} in "
+            f"{cfg.microbatches} microbatches, remat {cfg.remat_policy!r}, "
+            f"einsum attention, {TRAIN_STEPS} steps: losses "
+            f"{[round(h['loss'], 4) for h in hist]}, grad norms "
+            f"{[round(h['grad_norm'], 4) for h in hist]}; step ms "
+            f"{[round(h['dt'] * 1e3, 1) for h in hist]} (median of 2-"
+            f"{TRAIN_STEPS} {step_s * 1e3:.1f}), {tokens / step_s:.0f} "
+            f"tokens/s, model-FLOPs share {out['a']['model_flops_share']:.4f}"
+            f" (8·N·tokens over {PEAK_FLOPS['bfloat16']:.3g} FLOP/s bf16 "
+            f"dense; attention's score products not counted), peak memory "
+            f"{peak:.2f} GB; card {card}")
+        del trainer, params, opt_state, inner, step_fn
+        torch.cuda.empty_cache()
+
+        # (b) the train step, card against CPU, float32, TF32 off
+        t0 = time.time()
+        small = get_config(LM_ARCH).smoke().replace(dtype="float32",
+                                                    microbatches=2)
+        hp = opt.OptConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+        it = GraphWalkCorpus(g, vocab=small.vocab, seed=1).batches(8, 64)
+        batches = [next(it) for _ in range(2)]
+        start = Model(small, "cpu").init_params(tr.PRNGKey(0))
+        runs = []
+        for dev in ("cpu", "cuda"):
+            # copies: the step updates the weights in place
+            p = DenseLM(tree_map(lambda t: t.to(dev, copy=True),
+                                 start.tree()), small)
+            o = opt.init_opt_state(p)
+            step = make_train_step(Model(small, dev), hp)
+            losses = []
+            for b in batches:
+                p, o, m = step(p, o, b)
+                losses.append(float(m["loss"]))
+            runs.append((losses, [x.cpu() for x in leaves(o.master)]))
+        (l_cpu, m_cpu), (l_card, m_card) = runs
+        dl = max(abs(a - b) for a, b in zip(l_cpu, l_card))
+        dm = max(float((a - b).abs().max()) for a, b in zip(m_cpu, m_card))
+        walls["b"] = time.time() - t0
+        out["b"] = {"losses_cpu": l_cpu, "losses_card": l_card,
+                    "max_loss_diff": dl, "max_master_diff": dm}
+        log(f"training (b): L={small.n_layers} d={small.d_model} float32, "
+            f"2 microbatches, 2 steps, card vs CPU: losses "
+            f"{l_card} vs {l_cpu} (max diff {dl:.3g}, "
+            f"tol {CARD_CPU_LOSS_TOL}); max |master diff| {dm:.3g} (tol "
+            f"{CARD_CPU_MASTER_TOL})")
+        check(dl < CARD_CPU_LOSS_TOL and dm < CARD_CPU_MASTER_TOL,
+              "18(b): the card's train step leaves the CPU's")
+
+        # (c) checkpoints at the example's width: resume and a fault
+        t0 = time.time()
+        ex_cfg = example.config(example.parse_args([]))
+        ex_model = Model(ex_cfg, "cuda")
+        ex_hp = opt.OptConfig(lr=3e-4, warmup_steps=5, total_steps=20)
+
+        def run(total, ckdir, skip=0, fault=None):
+            it = GraphWalkCorpus(g, vocab=ex_cfg.vocab).batches(8, 128)
+            for _ in range(skip):
+                next(it)
+            t = Trainer(ex_model, ex_hp, TrainerConfig(
+                total_steps=total, ckpt_every=5, ckpt_dir=ckdir,
+                log_every=1000))
+            p, o = t.fit(tr.PRNGKey(0), it, fault_hook=fault)
+            return t, p, o
+
+        ck = os.path.join(work, "resume")
+        run(10, ck)
+        t2, p2, o2 = run(20, ck, skip=10)
+        check(t2.history[0]["step"] == 11 and int(o2.step) == 20,
+              f"18(c): resumed at {t2.history[0]['step']}, ended at "
+              f"{int(o2.step)}")
+        t3, p3, o3 = run(20, None)
+        dm = max(float((a - b).abs().max())
+                 for a, b in zip(leaves(o2.master), leaves(o3.master)))
+        same = all(torch.equal(a, b) for a, b in
+                   zip(leaves(o2.master) + leaves(o2.mu) + leaves(o2.nu),
+                       leaves(o3.master) + leaves(o3.mu) + leaves(o3.nu)))
+        dloss = max(abs(a["loss"] - b["loss"])
+                    for a, b in zip(t2.history, t3.history[10:]))
+        # two runs that differ only in the order of float sums differ by
+        # at most about 2·lr a step
+        tol = 2 * ex_hp.lr * 10
+        check(dm <= tol, f"18(c): resumed masters {dm:.3g} from the "
+              f"uninterrupted run's (tol {tol:.3g})")
+        fired = []
+
+        def fault(step):
+            if step == 12 and not fired:
+                fired.append(step)
+                raise RuntimeError("injected node failure")
+
+        t4, p4, o4 = run(20, os.path.join(work, "fault"), fault=fault)
+        check(fired == [12] and int(o4.step) == 20
+              and [h["step"] for h in t4.history][10:14] == [11, 12, 11, 12]
+              and t4.ckpt._thread is None,
+              f"18(c): the fault run: {[h['step'] for h in t4.history]}")
+        sizes = sum(os.path.getsize(os.path.join(ck, "step_00000020", f))
+                    for f in os.listdir(os.path.join(ck, "step_00000020")))
+        walls["c"] = time.time() - t0
+        out["c"] = {"resumed_equal": same, "max_master_diff": dm,
+                    "max_loss_diff": dloss, "ckpt_MB": sizes / 1e6,
+                    "fault_steps": [h["step"] for h in t4.history]}
+        log(f"training (c): L={ex_cfg.n_layers} d={ex_cfg.d_model} "
+            f"V={ex_cfg.vocab}: 10 steps + resume to 20 (history from "
+            f"{t2.history[0]['step']}) against 20 uninterrupted: bit-equal "
+            f"state {same}, max |master diff| {dm:.3g} (tol {tol:.3g}), max "
+            f"|loss diff| {dloss:.3g}; fault at 12 recovered to 20; a "
+            f"checkpoint {sizes / 1e6:.1f} MB")
+        del t2, p2, o2, t3, p3, o3, t4, p4, o4, ex_model
+        torch.cuda.empty_cache()
+
+        # (d) the fifth example in-process (K2 for its graph)
+        t0 = time.time()
+        rs.reset_launches()
+        res = example.main(["--steps", str(EXAMPLE_STEPS), "--ckpt",
+                            os.path.join(work, "example")])
+        torch.cuda.synchronize()
+        k2_ex = rs.LAUNCHES["rmat_sample_prng"]
+        check(k2_ex > 0, "18(d): the example's generate never ran K2")
+        err = max(err, k2_unchunked_vs_plain(
+            res["graph"], res["pipe"].struct.scaled(1), "18(d) example", tr,
+            rmat, sampler, ref, rs, torch))
+        losses = res["losses"]
+        f10, l10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        check(len(losses) == EXAMPLE_STEPS and l10 < f10,
+              f"18(d): first10 {f10:.4f}, last10 {l10:.4f}")
+        walls["d"] = time.time() - t0
+        out["d"] = {"steps": EXAMPLE_STEPS, "first10": f10, "last10": l10,
+                    "k2": k2_ex, "step_ms_median": float(np.median(
+                        [h["dt"] for h in res["trainer"].history[1:]])) * 1e3}
+        log(f"training (d): the fifth example, {EXAMPLE_STEPS} steps: "
+            f"first10 {f10:.4f} last10 {l10:.4f}; K2 {k2_ex} launches")
+        del res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out.update(walls={k: round(v, 2) for k, v in walls.items()},
+               wall=round(sum(walls.values()), 2), card=card)
+    return out, k2 + k2_ex, err
+
+
 def flash_d128_timing(fa, torch) -> dict:
     """The tensor-core kernel at head dim 128 (the d = 128 template, which
     the scoring shape does not run), at the attention shape of a d = 128
@@ -3338,6 +3632,12 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     clock("9-10")
+    train, train_k2, e_train = phase_training(
+        convert, tr, rmat, sampler, ref, rs, fa, get_config, Model, torch)
+    errs["rmat_sample_prng"] = max(errs["rmat_sample_prng"], e_train)
+    log(f"training: phase 18 wall {train['wall']:.1f}s of its "
+        f"{TRAIN_BUDGET_S:.0f}s budget; " + json.dumps(train))
+    clock("18")
     rows = phase_timing(tr, ref, rs, torch, errs, launches, largest)
     if sass:
         rows[-1]["sass_level_loop"] = sass
@@ -3352,7 +3652,9 @@ def main() -> int:
                     baselines_path_launches=base["launches"],
                     baselines_path_max_abs_err=base["err"],
                     scaleout_path_launches=scale["launches"],
-                    scaleout_examples_launches=scale["e"]["k2"])
+                    scaleout_examples_launches=scale["e"]["k2"],
+                    train_path_launches=train_k2,
+                    train_path_max_abs_err=e_train)
     for row in rows:
         if row["name"] in bench["launches"]:
             row.update(bench_path_launches=bench["launches"][row["name"]],

@@ -26,8 +26,10 @@ format.  Keys (``{j}``/``{i}`` are column / block indices):
 =================================  ======================================
 
 ``lm_params_from_numpy`` carries an LM's weights across: the JAX package's
-parameter tree as numpy arrays → the port's ``DenseLM`` module;
-``gnn_params_from_numpy`` does the same for a GCN / GAT.
+parameter tree as numpy arrays → the port's ``DenseLM`` module, and
+``opt_state_from_numpy`` its optimizer state; ``lm_params_to_numpy`` and
+``opt_state_to_numpy`` carry both back as numpy trees of the reference's
+structure.  ``gnn_params_from_numpy`` does the same for a GCN / GAT.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import DenseLM
 from repro_torch.tabular.schema import TableSchema
 from repro_torch.tabular.vgm import VGMParams
+from repro_torch.training.optimizer import OptState
 
 State = Dict[str, np.ndarray]
 
@@ -218,6 +221,42 @@ def lm_params_from_numpy(tree, cfg, device="cuda") -> DenseLM:
     ...); stacked ``(L, ...)`` leaves are split per layer."""
     return DenseLM(tree_map(lambda a: tensor_from_numpy(a).to(device), tree),
                    cfg)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch → numpy on the host; bfloat16 comes back as float32 of the
+    same values (numpy has no bfloat16 of its own: ``jnp.asarray(a,
+    jnp.bfloat16)`` restores it exactly)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def lm_params_to_numpy(params: DenseLM):
+    """The port's weights → the JAX package's parameter tree as numpy
+    arrays (stacked ``(L, ...)`` leaves with ``cfg.scan_layers``)."""
+    return tree_map(tensor_to_numpy, params.tree())
+
+
+def opt_state_from_numpy(state, device="cuda") -> OptState:
+    """The JAX package's ``OptState`` as numpy arrays (``jax.tree.map(
+    np.asarray, opt_state)``: master, mu, nu trees and the int32 step) →
+    the port's on ``device``."""
+    def tree(t):
+        return tree_map(lambda a: tensor_from_numpy(a).to(device), t)
+    return OptState(master=tree(state.master), mu=tree(state.mu),
+                    nu=tree(state.nu),
+                    step=torch.tensor(int(state.step), dtype=torch.int32,
+                                      device=device))
+
+
+def opt_state_to_numpy(state: OptState) -> OptState:
+    """The port's ``OptState`` → the same fields as numpy arrays (the step
+    an int32 scalar array), the reference's ``OptState(*...)`` fields."""
+    return OptState(*(tree_map(tensor_to_numpy, t)
+                      for t in (state.master, state.mu, state.nu)),
+                    step=np.asarray(int(state.step), np.int32))
 
 
 def gnn_params_from_numpy(tree, cfg: GNNConfig, device="cuda") -> GNN:

@@ -1,10 +1,11 @@
 """Transformer building blocks: the port of the JAX package's
 ``models/layers.py`` for the dense family.
 
-The math is plain functions on tensors; the weights live in small
-``nn.Module``s (``Attention``, ``SwiGLU``) whose parameters keep the JAX
-layouts (``wq`` ``(D, H, Hd)``, ``wo`` ``(H, Hd, D)``, ...), so that a JAX
-parameter tree maps onto them as a copy.  Attention uses the grouped
+The math is plain functions on tensors, taking any object with the
+weights as attributes; the weights live in small ``nn.Module``s
+(``Attention``, ``SwiGLU``) whose parameters keep the JAX layouts (``wq``
+``(D, H, Hd)``, ``wo`` ``(H, Hd, D)``, ...), so that a JAX parameter tree
+maps onto them as a copy.  Attention uses the grouped
 formulation: queries reshaped to ``(B, S, KV, G, Hd)``, so K/V are never
 repeated.
 
@@ -33,7 +34,8 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # inference weights: training (and its gradients) is a later port
+    # no gradient until a train step asks for one (``training.steps``), so
+    # scoring and serving build no autograd graph
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -105,10 +107,6 @@ class Attention(nn.Module):
         for name in ("wq", "wk", "wv", "wo"):
             setattr(self, name, _param(tree[name]))
 
-    def forward(self, x, *, cfg, positions, kv_cache=None, cache_pos=None):
-        return multihead_attention(self, x, cfg=cfg, positions=positions,
-                                   kv_cache=kv_cache, cache_pos=cache_pos)
-
 
 # default query chunk: bounds the live (Qc, T) score block
 ATTN_Q_CHUNK = 1024
@@ -163,6 +161,23 @@ def _write_cache(kv_cache: KVCache, k, v, positions, cache_pos) -> KVCache:
     return ck, cv
 
 
+class _FlashForwardOnly(torch.autograd.Function):
+    """The flash kernel (K4) computes the forward only, as the JAX
+    package's Pallas kernel does: a backward through it raises, where the
+    kernel's output would otherwise carry no gradient to q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group: int):
+        return kops.attention(q, k, v, causal=True, group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(
+            "attn_impl='flash' cannot be differentiated: the flash "
+            "attention kernel has no backward (nor has the JAX package's "
+            "Pallas kernel); train with attn_impl='einsum'")
+
+
 def multihead_attention(w, x, *, cfg, positions, kv_cache=None,
                         cache_pos=None):
     """Grouped-query causal self-attention.
@@ -172,7 +187,8 @@ def multihead_attention(w, x, *, cfg, positions, kv_cache=None,
     (decode, S == 1) and attention runs over the cache; the call then
     returns ``(out, (ck, cv))``.  Without a cache, and with
     ``cfg.attn_impl == "flash"`` and ``S % 128 == 0``, attention runs in
-    the flash kernel, which masks by index, not by ``positions``.
+    the flash kernel, which masks by index, not by ``positions``, and
+    has no backward.
     """
     B, S, D = x.shape
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -197,7 +213,7 @@ def multihead_attention(w, x, *, cfg, positions, kv_cache=None,
         qf = qf.reshape(B * H, S, Hd).contiguous()
         kf = k.permute(0, 2, 1, 3).reshape(B * KV, S, Hd).contiguous()
         vf = v.permute(0, 2, 1, 3).reshape(B * KV, S, Hd).contiguous()
-        o = kops.attention(qf, kf, vf, causal=True, group=G)
+        o = _FlashForwardOnly.apply(qf, kf, vf, G)
         o = o.reshape(B, H, S, Hd).permute(0, 2, 1, 3)
         return torch.einsum("bshk,hkd->bsd", o.to(x.dtype), w.wo)
 

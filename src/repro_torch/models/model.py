@@ -1,25 +1,42 @@
 """Model API of the port, over the dense LM family.
 
-``Model(cfg, device)`` exposes what the JAX package's ``Model`` does for
-scoring and serving:
+``Model(cfg, device)`` exposes what the JAX package's ``Model`` does:
 
 * ``param_defs / init_params``: the parameter tree and its random weights
   (the JAX package's weights for the same key) as a ``DenseLM`` module;
-* ``forward(params, batch, cache=None)`` and ``loss(params, batch)``;
+* ``abstract_params / param_dims``: each leaf's ``TensorSpec`` (shape and
+  dtype) and logical dims, without drawing it;
+* ``loss(params, batch)``: the training objective (``training.steps``
+  differentiates it);
+* ``forward(params, batch, cache=None)``;
 * ``prefill(params, batch, cache)``: context ingest, writes the cache;
 * ``decode_step(params, batch, cache)``: one token, updates the cache;
-* ``cache_abstract(batch, seq)`` / ``init_cache(batch, seq)``.
+* ``cache_abstract(batch, seq)`` / ``init_cache(batch, seq)``;
+* ``input_specs(shape)`` / ``batch_dims(batch)``: the ``TensorSpec`` of
+  every input of a ``ShapeSpec`` cell, and their logical dims.
 
 Everything runs on ``device`` (``"cuda"`` unless the caller asks for the
 CPU).  Other families raise ``NotImplementedError`` (ROADMAP A7(b)).
 """
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.params import init_params
+from repro_torch.models.params import (TensorSpec, abstract_params,
+                                       init_params, param_dims)
+
+BATCH_DIMS = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "positions": ("batch", "seq"),
+    "loss_mask": ("batch", "seq"),
+    "patches": ("batch", "patches", "patch_dim"),
+    "frames": ("batch", "frames", "embed"),
+}
 
 
 class Model:
@@ -32,11 +49,17 @@ class Model:
     def param_defs(self):
         return tf_mod.stack_defs(self.cfg)
 
+    def abstract_params(self):
+        return abstract_params(self.param_defs(), self.cfg.dtype)
+
     def init_params(self, key: torch.Tensor) -> tf_mod.DenseLM:
         """``key``: a ``repro_torch.random`` key (``random.PRNGKey(0)``)."""
         tree = init_params(self.param_defs(), key, self.cfg.dtype,
                            self.device)
         return tf_mod.DenseLM(tree, self.cfg)
+
+    def param_dims(self):
+        return param_dims(self.param_defs())
 
     # -- steps ---------------------------------------------------------------
     def loss(self, params, batch):
@@ -61,3 +84,18 @@ class Model:
 
     def init_cache(self, batch: int, seq: int):
         return tf_mod.init_cache(self.cfg, batch, seq, self.device)
+
+    # -- input specs ----------------------------------------------------------
+    def input_specs(self, shape: ShapeSpec) -> Dict[str, Any]:
+        """Shapes and dtypes of one cell's inputs (nothing allocated)."""
+        B, S, i32 = shape.global_batch, shape.seq_len, torch.int32
+        if shape.kind == "train":
+            return {"tokens": TensorSpec((B, S), i32),
+                    "labels": TensorSpec((B, S), i32)}
+        if shape.kind == "prefill":
+            return {"tokens": TensorSpec((B, S), i32)}
+        # decode: one token against a cache of length seq_len
+        return {"tokens": TensorSpec((B, 1), i32)}
+
+    def batch_dims(self, batch: Dict[str, Any]):
+        return {k: BATCH_DIMS[k] for k in batch}

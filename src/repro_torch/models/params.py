@@ -7,15 +7,15 @@ Model builders produce nested dicts (and, for unstacked layers, lists) of
 order (dict keys sorted, lists in order), the key is split into one key
 per leaf, and each ``normal`` leaf is ``random.normal(key, shape) * scale``
 in float32, then cast to its dtype.  Leaves are drawn one at a time, so the
-int64 temporaries of the threefry draw stay the size of one leaf.  The
-logical dims are kept for the sharding port to come; nothing reads them
-yet.
+int64 temporaries of the threefry draw stay the size of one leaf.
+``abstract_params`` gives each leaf's shape and dtype without drawing it,
+``param_dims`` its logical dims (for the sharding port to come).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,11 +42,18 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else getattr(torch, str(name))
 
 
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor not made yet (``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
 def leaves(tree) -> List[Any]:
-    """Leaves in jax's flattening order: dict keys sorted, lists in order."""
+    """Leaves in jax's flattening order: dict keys sorted, lists in order
+    (a ``TensorSpec`` is a leaf)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, TensorSpec):
         return [x for t in tree for x in leaves(t)]
     return [tree]
 
@@ -56,13 +63,27 @@ def tree_map(fn: Callable, tree):
     structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, TensorSpec):
         return [tree_map(fn, t) for t in tree]
     return fn(tree)
 
 
+def _leaf_dtype(d: ParamDef, dtype) -> torch.dtype:
+    return torch_dtype(d.dtype if d.dtype is not None else dtype)
+
+
+def abstract_params(defs, dtype):
+    """``defs`` → the same tree of ``TensorSpec`` leaves."""
+    return tree_map(lambda d: TensorSpec(d.shape, _leaf_dtype(d, dtype)),
+                    defs)
+
+
+def param_dims(defs):
+    return tree_map(lambda d: d.dims, defs)
+
+
 def _init_one(d: ParamDef, key: torch.Tensor, dtype, device) -> torch.Tensor:
-    dt = torch_dtype(d.dtype if d.dtype is not None else dtype)
+    dt = _leaf_dtype(d, dtype)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dt, device=device)
     if d.init == "ones":

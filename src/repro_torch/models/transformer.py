@@ -1,39 +1,44 @@
 """Decoder stack of the dense LM family: the port of the JAX package's
 ``models/transformer.py`` (``family == "dense"``).
 
-One code path serves scoring, prefill and decode:
+One code path serves training, scoring, prefill and decode:
 
 * ``forward(params, batch, cfg, cache=None)`` runs the block stack.  With
   ``cache`` it both reads (attention over the cached K/V) and writes (the
   cache's tensors are updated in place, and the returned cache holds them
   with the new ``pos``).  Prefill is the S > 1 case with a fresh cache;
   decode is S == 1.
-* The layers are an ``nn.ModuleList`` run by a Python loop.  The
-  reference's ``scan_layers`` and ``remat`` are JAX lowering knobs with no
-  effect on what the loop computes.
+* The layers run in a Python loop.  Under autograd with ``cfg.remat``,
+  each block runs under ``torch.utils.checkpoint`` (non-reentrant), as
+  the reference's ``jax.remat`` of the scan body: ``remat_policy``
+  ``"nothing"`` (or ``"none"``) keeps only the block's input, ``"dots"``
+  also the outputs of the products without batch dims (the weight
+  matmuls), as ``checkpoint_dots_with_no_batch_dims``.
 
-The parameters are a ``DenseLM`` module built from a parameter tree of the
-JAX package's structure: stacked ``(L, ...)`` leaves are split per layer
-into views, so no weight is copied.
+The parameters are a ``DenseLM`` module holding the JAX package's tree:
+with ``cfg.scan_layers`` each layer leaf is one stacked ``(L, ...)``
+parameter, else a list of per-layer blocks.  ``DenseLM.tree()`` gives the
+tree back (the optimizer's and the checkpoint's leaves, in jax's order),
+and ``DenseLM.layers`` each layer's weights: views of the stacked leaves,
+made by one ``unbind`` each, so a layer's gradient lands in its slice of
+the stacked leaf's gradient, as the reference's scan writes it.
 """
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models.layers import (Attention, SwiGLU, _param,
                                        attention_defs, cross_entropy,
                                        embed_defs, head_defs, logits_from,
-                                       rms_norm, swiglu_defs)
-from repro_torch.models.params import ParamDef, torch_dtype
-
-
-class TensorSpec(NamedTuple):
-    """Shape and dtype of a tensor not made yet (``jax.ShapeDtypeStruct``)."""
-    shape: tuple
-    dtype: torch.dtype
+                                       multihead_attention, rms_norm, swiglu,
+                                       swiglu_defs)
+from repro_torch.models.params import ParamDef, TensorSpec, torch_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -74,21 +79,16 @@ def stack_defs(cfg) -> Dict[str, Any]:
             "head": head_defs(cfg)}
 
 
-def layer_tree(layers, i: int):
-    """Layer ``i``'s tree from either list-form or stacked layers."""
-    if isinstance(layers, (list, tuple)):
-        return layers[i]
-    if isinstance(layers, dict):
-        return {k: layer_tree(v, i) for k, v in layers.items()}
-    return layers[i]
-
-
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
 
+_ATTN, _MLP = ("wk", "wo", "wq", "wv"), ("w1", "w2", "w3")
+
+
 class DenseBlock(nn.Module):
-    """GQA + RoPE attention and a SwiGLU FFN, each behind an RMSNorm."""
+    """The weights of GQA + RoPE attention and a SwiGLU FFN, each behind
+    an RMSNorm: one layer's, or every layer's stacked on a leading L dim."""
 
     def __init__(self, tree):
         super().__init__()
@@ -97,27 +97,57 @@ class DenseBlock(nn.Module):
         self.attn = Attention(tree["attn"])
         self.mlp = SwiGLU(tree["mlp"])
 
-    def forward(self, x, cfg, positions, cache_kv=None, cache_pos=None):
-        """→ (x, new K/V pair or None)."""
-        x, new_kv = _attn_block(self, x, cfg, positions, cache_kv, cache_pos)
-        h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + self.mlp(h), new_kv
+    def tree(self) -> Dict[str, Any]:
+        return {"attn": {n: getattr(self.attn, n) for n in _ATTN},
+                "ln1": self.ln1, "ln2": self.ln2,
+                "mlp": {n: getattr(self.mlp, n) for n in _MLP}}
+
+
+def _layer_views(stack: DenseBlock) -> list:
+    """Each layer's weights as views of the stacked leaves."""
+    t = stack.tree()
+    attn = {n: t["attn"][n].unbind(0) for n in _ATTN}
+    mlp = {n: t["mlp"][n].unbind(0) for n in _MLP}
+    ln1, ln2 = t["ln1"].unbind(0), t["ln2"].unbind(0)
+    return [SimpleNamespace(
+        ln1=ln1[i], ln2=ln2[i],
+        attn=SimpleNamespace(**{n: attn[n][i] for n in _ATTN}),
+        mlp=SimpleNamespace(**{n: mlp[n][i] for n in _MLP}))
+        for i in range(len(ln1))]
 
 
 class DenseLM(nn.Module):
     """The weights of a dense decoder-only LM, in the JAX layouts, from a
-    parameter tree of the JAX package's structure."""
+    parameter tree of the JAX package's structure (no weight copied)."""
 
     def __init__(self, tree, cfg):
         super().__init__()
         _require_dense(cfg)
+        self.cfg = cfg
         self.tok = _param(tree["embed"]["tok"])
-        self.layers = nn.ModuleList(
-            DenseBlock(layer_tree(tree["layers"], i))
-            for i in range(cfg.n_layers))
+        layers = tree["layers"]
+        if isinstance(layers, dict):
+            self.stack = DenseBlock(layers)
+        else:
+            self.blocks = nn.ModuleList(DenseBlock(t) for t in layers)
         self.ln_f = _param(tree["ln_f"])
         out = tree["head"].get("out")
         self.out = None if out is None else _param(out)
+
+    @property
+    def layers(self) -> list:
+        """Each layer's weights (``ln1``, ``ln2``, ``attn.wq``, ...)."""
+        if hasattr(self, "stack"):
+            return _layer_views(self.stack)
+        return list(self.blocks)
+
+    def tree(self) -> Dict[str, Any]:
+        """The parameters in the JAX package's tree."""
+        layers = (self.stack.tree() if hasattr(self, "stack")
+                  else [b.tree() for b in self.blocks])
+        return {"embed": {"tok": self.tok},
+                "head": {} if self.out is None else {"out": self.out},
+                "layers": layers, "ln_f": self.ln_f}
 
 
 # ---------------------------------------------------------------------------
@@ -151,19 +181,55 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
 def _attn_block(w, x, cfg, positions, cache_kv=None, cache_pos=None):
     h = rms_norm(x, w.ln1, cfg.norm_eps)
     if cache_kv is not None:
-        a, new_kv = w.attn(h, cfg=cfg, positions=positions,
-                           kv_cache=cache_kv, cache_pos=cache_pos)
+        a, new_kv = multihead_attention(w.attn, h, cfg=cfg,
+                                        positions=positions,
+                                        kv_cache=cache_kv,
+                                        cache_pos=cache_pos)
     else:
-        a = w.attn(h, cfg=cfg, positions=positions)
+        a = multihead_attention(w.attn, h, cfg=cfg, positions=positions)
         new_kv = None
     return x + a, new_kv
 
 
+def dense_block(w, x, cfg, positions, cache_kv=None, cache_pos=None):
+    """One block on the layer weights ``w`` → (x, new K/V pair or None)."""
+    x, new_kv = _attn_block(w, x, cfg, positions, cache_kv, cache_pos)
+    h = rms_norm(x, w.ln2, cfg.norm_eps)
+    return x + swiglu(w.mlp, h), new_kv
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the products without batch dims: the weight matmuls (``x @
+    w``, and the einsums against a weight, which run as a ``bmm`` of
+    batch 1); recompute the rest."""
+    aten = torch.ops.aten
+    keep = op in (aten.mm.default, aten.addmm.default) or (
+        op is aten.bmm.default and args[0].shape[0] == 1)
+    return (ckpt.CheckpointPolicy.MUST_SAVE if keep
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(w, x, cfg, positions):
+    """``dense_block`` under ``torch.utils.checkpoint``: its activations
+    are recomputed in the backward, as ``jax.remat`` recomputes them."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return ckpt.checkpoint(lambda h: dense_block(w, h, cfg, positions)[0],
+                           x, use_reentrant=False, **kw)
+
+
 def _run_attn_family(params: DenseLM, x, cfg, positions, cache):
-    for i, block in enumerate(params.layers):
+    remat = (cfg.remat and cache is None and torch.is_grad_enabled()
+             and any(p.requires_grad for p in params.parameters()))
+    for i, w in enumerate(params.layers):
+        if remat:
+            x = _remat_block(w, x, cfg, positions)
+            continue
         ckv = (cache["k"][i], cache["v"][i]) if cache is not None else None
-        x, _ = block(x, cfg, positions, ckv,
-                     cache["pos"] if cache is not None else None)
+        x, _ = dense_block(w, x, cfg, positions, ckv,
+                           cache["pos"] if cache is not None else None)
     if cache is None:
         return x, 0.0, None
     return x, 0.0, dict(cache, pos=cache["pos"] + x.shape[1])

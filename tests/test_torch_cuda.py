@@ -24,7 +24,12 @@ arithmetic on the card.  The benchmarks' ``timeit`` of a K2 draw covers
 the draw's CUDA-event time, and Fig. 8 times its three backends on the
 card, each at most its H100 bound.  A 2-worker cluster sharing the card
 writes the card's serial bytes, and a mesh step of four entries on one
-card gives the CPU's ids exactly."""
+card gives the CPU's ids exactly.  The dense LM's train step on the card
+follows the CPU's from the same params and optimizer state (TF32 off):
+losses within 1e-5, masters within 5e-5, a tenth of the lr (Adam's first
+update lr·g/(|g| + 1e-8) turns last-bit gradient differences of weights
+whose gradient is near 1e-8 into a part of lr); a checkpoint written on
+the card restores on the CPU exactly."""
 import numpy as np
 import pytest
 import torch
@@ -911,3 +916,74 @@ def test_device_generate_mesh_of_four_on_card_equals_cpu(cuda):
         for g, w in zip(got, want):
             assert g.device.type == "cuda" and g.shape == (4, 1 << 16)
             torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+def _lm_tiny(**kw):
+    """``tests/test_trainer.py``'s config, in float32."""
+    return get_config("tinyllama-1.1b").smoke().replace(
+        n_layers=2, vocab=64, d_model=32, n_heads=2, n_kv_heads=2,
+        head_dim=16, d_ff=64, dtype="float32", **kw)
+
+
+def _lm_state_on(dev, cfg):
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.training import optimizer as opt
+    p = Model(cfg, "cpu").init_params(tr.PRNGKey(0))
+    p = DenseLM(tree_map(lambda t: t.to(dev), p.tree()), cfg)
+    return p, opt.init_opt_state(p)
+
+
+def test_train_step_on_card_follows_cpu(cuda, tmp_path):
+    """Two steps of the microbatched train step: the card's losses and
+    masters follow the CPU's, every leaf moves, and the card's
+    checkpoint restores on the CPU."""
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.models.params import leaves
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.steps import make_train_step
+    cfg = _lm_tiny(microbatches=2)
+    hp = opt.OptConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 64, (8, 17), dtype=np.int32)
+               for _ in range(2)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        p, o = _lm_state_on(dev, cfg)
+        before = [w.detach().clone() for w in leaves(p.tree())]
+        step = make_train_step(Model(cfg, dev), hp)
+        losses = []
+        for t in batches:
+            p, o, met = step(p, o, {"tokens": t[:, :-1], "labels": t[:, 1:]})
+            losses.append(float(met["loss"]))
+        for w0, w in zip(before, leaves(p.tree())):
+            assert w.device.type == torch.device(dev).type
+            assert not torch.equal(w0, w.detach())
+        runs[torch.device(dev).type] = (losses, p, o)
+    (lc, pc, oc), (lg, pg, og) = runs["cpu"], runs["cuda"]
+    assert max(abs(a - b) for a, b in zip(lc, lg)) < 1e-5, (lc, lg)
+    for a, b in zip(leaves(oc.master), leaves(og.master)):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=5e-5)
+    ckpt.save(str(tmp_path), 2, (pg, og))
+    (p2, o2), step = ckpt.restore(str(tmp_path), (pc, oc))
+    assert step == 2 and int(o2.step) == 2
+    for a, b in zip(leaves(p2.tree()) + leaves(o2.mu),
+                    leaves(pg.tree()) + leaves(og.mu)):
+        assert a.device.type == "cpu"
+        torch.testing.assert_close(a, b.detach().cpu(), rtol=0, atol=0)
+
+
+def test_flash_route_raises_under_autograd_on_card(cuda):
+    """The flash kernel runs the forward; a backward through it raises."""
+    from repro_torch.models.params import leaves
+    cfg = _lm_tiny(attn_impl="flash")
+    p, _ = _lm_state_on(cuda, cfg)
+    toks = torch.randint(0, 64, (1, 128), device=cuda)
+    ws = leaves(p.tree())
+    for w in ws:
+        w.requires_grad_(True)
+    fa.reset_launches()
+    loss = Model(cfg, cuda).loss(p, {"tokens": toks, "labels": toks})
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    with pytest.raises(RuntimeError, match="no backward"):
+        torch.autograd.grad(loss, ws)

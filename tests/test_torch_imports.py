@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+``chip_smoke.py`` imports JAX, the JAX package ``repro`` or ``ml_dtypes``
+(which the card's machine lacks)."""
 import ast
 from pathlib import Path
 
@@ -12,7 +13,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
 
 def _banned(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -40,4 +41,6 @@ def test_scan_sees_the_package():
             "fig8_throughput.py", "feature_throughput.py", "cluster.py",
             "launcher.py", "cluster_scaling.py", "quickstart.py",
             "serve_batched.py", "trillion_edge_plan.py",
-            "pretrain_finetune_gnn.py"} <= names
+            "pretrain_finetune_gnn.py", "optimizer.py", "steps.py",
+            "trainer.py", "checkpoint.py",
+            "train_lm_on_graph_corpus.py"} <= names
