@@ -10,7 +10,8 @@ disk (phase 13) and across worker processes (phase 17), scoring what it
 generates (phase 14), the paper's baselines (phase 15), the paper's
 benchmark tables (phase 16), the dense
 LM's scoring forward and serving engine (phases 8-10), training it
-(phase 18) and the toolchain probes S1-S4 (phase 12):
+(phase 18), the other LM families (phase 19) and the toolchain probes
+S1-S4 (phase 12):
 
 1. build the kernels; print the card's name and power limit; read the
    built SASS: the in-register R-MAT kernel's level loop, and the
@@ -237,6 +238,29 @@ LM's scoring forward and serving engine (phases 8-10), training it
     stream): last-10 loss below first-10.  The wall is logged beside
     ``TRAIN_BUDGET_S``; K2's row carries ``train_path_launches`` and
     ``train_path_max_abs_err``.
+19. the other LM families (run after phase 18, ``phase_families``), one
+    at a time (``FAMILIES``): qwen3-moe-30b-a3b (8 of 48 layers),
+    llama4-scout-17b-16e (2 of 48), pixtral-12b (8 of 40), zamba2-1.2b,
+    rwkv6-7b and seamless-m4t-medium (not cut), bf16 at their published
+    widths from ``init_params(PRNGKey(0))``, each cut logged with its
+    reason: (a) the draw's seconds and peak memory; (b) one scoring
+    forward of B = 2 × S = 2048 (VLM: 256 patches + 1792 tokens; encdec:
+    1024 frames + 1024 tokens) through the flash path, every causal
+    self-attention on K4's tensor-core route (8, 2, 8, 7, 0 and 12
+    launches; d 128 for the first three), K4 against its plain version
+    on the family's layer-0 q/k/v within 2e-2, the einsum path's loss
+    within 2e-2 of the flash path's, ms and tokens/s; (c) the two MoE,
+    the hybrid and the SSM through ``ServingEngine`` (8 requests, 4
+    slots, 16 new tokens), every first token equal to ``Model.prefill``
+    of its prompt from the cache the engine found in its slot (C16); the
+    VLM and the encdec through ``Model.prefill`` with their patches or
+    frames and 16 ``decode_step``s; decode tokens/s and peak memory;
+    (d) card = CPU at each config's ``smoke()`` width in float32:
+    logits within 1e-4 (the hybrid's 5e-4), the MoE's top-k ids and
+    dispatch buffers equal, the hybrid's and the SSM's prefill + decode
+    against the full forward.  The wall is logged beside
+    ``FAMILY_BUDGET_S``; K4's row carries ``families_path_launches``
+    and ``families_path_max_abs_err``.
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
 ``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
@@ -254,6 +278,7 @@ checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -2695,6 +2720,25 @@ def phase_flash_kernel(fa, ref, torch) -> tuple:
                                                                  torch)
 
 
+@contextlib.contextmanager
+def first_flash_inputs(fa):
+    """Within the block, ``flash_attention`` keeps its first call's
+    inputs (layer 0's q, k, v and keywords) in the list it yields."""
+    first = []
+    plain_call = fa.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not first:
+            first.append((q, k, v, kw))
+        return plain_call(q, k, v, **kw)
+
+    fa.flash_attention = capture
+    try:
+        yield first
+    finally:
+        fa.flash_attention = plain_call
+
+
 def phase_lm_scoring(tr, get_config, Model, transformer, fa, rs, ref,
                      torch):
     """Scoring at full width through the flash path, then the same forward
@@ -2714,16 +2758,7 @@ def phase_lm_scoring(tr, get_config, Model, transformer, fa, rs, ref,
     toks = tr.randint(tr.PRNGKey(1), (LM_B, LM_S), 0, cfg.vocab, "cuda")
     batch = {"tokens": toks, "labels": toks}
 
-    first = []
-    plain_call = fa.flash_attention
-
-    def capture(q, k, v, **kw):
-        if not first:
-            first.append((q, k, v, kw))
-        return plain_call(q, k, v, **kw)
-
-    fa.flash_attention = capture       # keeps layer 0's inputs
-    try:
+    with first_flash_inputs(fa) as first:
         torch.cuda.synchronize()
         rs.reset_launches()
         fa.reset_launches()
@@ -2733,8 +2768,6 @@ def phase_lm_scoring(tr, get_config, Model, transformer, fa, rs, ref,
         wall = time.time() - t0
         launches = fa.LAUNCHES["flash_attention"]
         tc_launches = fa.LAUNCHES["flash_attention_wgmma"]
-    finally:
-        fa.flash_attention = plain_call
     loss = transformer.loss_from_logits(logits, batch, cfg).item()
     check(tuple(logits.shape) == (LM_B, LM_S, cfg.vocab), "logits shape")
     check(bool(torch.isfinite(logits).all()) and loss == loss
@@ -2877,20 +2910,36 @@ def trace_decode(eng, torch, steps: int = 4) -> None:
     trace_steps("serving", run, steps, torch)
 
 
-def phase_serving(model, params, ServingEngine, Request, fa, torch):
-    """The engine at full width: 8 requests through 4 slots."""
-    import numpy as np
+def timed_engine(ServingEngine):
+    """``ServingEngine`` that sums its decode steps' host seconds (each
+    step ends on the host) and keeps a copy of each slot's cache as a
+    prefill found it (``found``, in admission order)."""
 
     class TimedEngine(ServingEngine):
-        decode_s, decode_steps = 0.0, 0
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.decode_s, self.decode_steps, self.found = 0.0, 0, []
 
         def _decode(self, tokens, positions):
             t0 = time.perf_counter()
-            out = super()._decode(tokens, positions)   # ends on the host
+            out = super()._decode(tokens, positions)
             self.decode_s += time.perf_counter() - t0
             self.decode_steps += 1
             return out
 
+        def _prefill_slot(self, tokens, slot):
+            self.found.append({k: c[:, slot:slot + 1].clone()
+                               for k, c in self.cache.items() if k != "pos"})
+            return super()._prefill_slot(tokens, slot)
+
+    return TimedEngine
+
+
+def phase_serving(model, params, ServingEngine, Request, fa, torch):
+    """The engine at full width: 8 requests through 4 slots."""
+    import numpy as np
+
+    TimedEngine = timed_engine(ServingEngine)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, model.cfg.vocab, size=int(n), dtype=np.int32)
                for n in rng.integers(16, 257, size=8)]
@@ -3197,6 +3246,363 @@ def phase_training(convert, tr, rmat, sampler, ref, rs, fa, get_config,
                wall=round(sum(walls.values()), 2), card=card)
     return out, k2 + k2_ex, err
 
+
+#: phase 19: its wall is logged beside this budget
+FAMILY_BUDGET_S = 150.0
+#: phase 19(a): each family's config, its depth on the card (None: not
+#: cut), the reason for a cut, its K4 launches on one scoring forward
+#: (every attention layer; the hybrid's shared block applied 7 times;
+#: encdec's 12 decoder layers, its encoder being bidirectional; RWKV6 has
+#: no attention) and whether it is served through ``ServingEngine``
+FAMILIES = (
+    ("qwen3-moe-30b-a3b", 8, "at full depth 61 GB of weights (30.5 B "
+     "parameters, ~40 s of draw): most of the card and of the phase's "
+     "budget", 8, True),
+    ("llama4-scout-17b-16e", 2, "~102 B parameters at full depth", 2, True),
+    ("pixtral-12b", 8, "the phase's wall; the dense backbone at full depth "
+     "is phase 9's path", 8, False),
+    ("zamba2-1.2b", None, "", 7, True),
+    ("rwkv6-7b", None, "", 0, True),
+    ("seamless-m4t-medium", None, "", 12, False),
+)
+#: phase 19(b): the scoring batch (VLM: 256 patches + 1792 text tokens;
+#: encdec: 1024 frames + 1024 tokens)
+FAMILY_B, FAMILY_S = 2, 2048
+#: phase 19(c): served requests, slots, cache length and new tokens
+SERVE_N, SERVE_SLOTS, SERVE_LEN, SERVE_NEW = 8, 4, 512, 16
+#: phase 19(d): card against CPU at the smoke width in float32: logits
+#: within 1e-4, the hybrid's 5e-4 (its SSD chunks take exp of differences
+#: of cumulative sums and normalise small products, which float32 carries
+#: less closely: the tests' ``logit_tol``)
+FAMILY_CPU_TOL = {"hybrid": 5e-4}
+
+
+def _family_batch(cfg, B: int, S: int, seed: int, tr, device: str) -> dict:
+    """A scoring batch of ``S`` positions from a seed: tokens = labels,
+    plus the VLM's patches or the encdec's frames (half the positions)."""
+    n = S
+    out = {}
+    if cfg.family == "vlm":
+        n = S - cfg.vlm.n_patches
+        out["patches"] = tr.normal(tr.PRNGKey(seed + 1), (
+            B, cfg.vlm.n_patches, cfg.vlm.patch_dim), device)
+    if cfg.family == "encdec":
+        n = S // 2
+        out["frames"] = tr.normal(tr.PRNGKey(seed + 1),
+                                  (B, S - n, cfg.d_model), device)
+    toks = tr.randint(tr.PRNGKey(seed), (B, n), 0, cfg.vocab, device)
+    return {"tokens": toks, "labels": toks, **out}
+
+
+def _family_scoring(cfg, model, params, expect: int, fa, ref, transformer,
+                    Model, tr, torch) -> dict:
+    """19(b): one flash-path scoring forward of B x S, K4 against its
+    plain version on the family's own layer-0 q/k/v, the einsum path's
+    loss beside the flash path's."""
+    batch = _family_batch(cfg, FAMILY_B, FAMILY_S, 1, tr, "cuda")
+    with first_flash_inputs(fa) as first:
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.time()
+        with torch.no_grad():
+            out = model.forward(params, batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = fa.LAUNCHES["flash_attention"]
+        tc = fa.LAUNCHES["flash_attention_wgmma"]
+    logits = out.logits
+    loss = transformer.loss_from_logits(logits, batch, cfg,
+                                        out.aux_loss).item()
+    n_text = batch["tokens"].shape[1]
+    rows = FAMILY_S if cfg.family == "vlm" else n_text
+    check(tuple(logits.shape) == (FAMILY_B, rows, cfg.vocab),
+          f"19(b) {cfg.name}: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()) and loss == loss
+          and abs(loss) != float("inf"), f"19(b) {cfg.name}: non-finite")
+    check(launches == tc == expect, f"19(b) {cfg.name}: {launches} flash "
+          f"launches ({tc} on the tensor-core route), not {expect}")
+    del logits, out
+    t0 = time.time()
+    with torch.no_grad():
+        model.forward(params, batch)
+    torch.cuda.synchronize()
+    wall2 = time.time() - t0
+    res = {"first_ms": wall * 1e3, "ms": wall2 * 1e3,
+           "tokens_per_s": FAMILY_B * FAMILY_S / wall2, "loss": loss,
+           "k4_launches": launches, "k4_err": 0.0}
+    if first:
+        q, k, v, kw = first[0]
+        res["k4_err"] = attn_err(
+            fa.flash_attention(q, k, v, **kw),
+            ref.attention_ref(q, k, v, causal=kw["causal"],
+                              group=kw["group"]))
+        res["k4_shape"] = (f"Hq={q.shape[0]} Hkv={k.shape[0]} "
+                           f"S={q.shape[1]} d={q.shape[2]}")
+        check(res["k4_err"] < 2e-2, f"19(b) {cfg.name}: flash_attention "
+              f"disagrees on the path ({res['k4_err']:.3g})")
+        del first, q, k, v
+        fa.reset_launches()
+        t0 = time.time()
+        with torch.no_grad():
+            out_e = Model(cfg.replace(attn_impl="einsum"), "cuda").forward(
+                params, batch)
+        torch.cuda.synchronize()
+        res["einsum_ms"] = (time.time() - t0) * 1e3
+        res["einsum_loss"] = transformer.loss_from_logits(
+            out_e.logits, batch, cfg, out_e.aux_loss).item()
+        del out_e
+        check(fa.LAUNCHES["flash_attention"] == 0,
+              f"19(b) {cfg.name}: the einsum path ran the kernel")
+        check(abs(loss - res["einsum_loss"]) < 2e-2,
+              f"19(b) {cfg.name}: flash and einsum losses differ "
+              f"({loss:.6f}, {res['einsum_loss']:.6f})")
+    log(f"families (b) {cfg.name}: B={FAMILY_B} S={FAMILY_S} flash forward "
+        f"{res['first_ms']:.1f} ms (first), {res['ms']:.1f} ms (second), "
+        f"{res['tokens_per_s']:.1f} tokens/s; loss {loss:.6f}; K4 launches "
+        f"{launches} (tensor-core {tc}); K4 on layer 0's own q/k/v "
+        f"{res.get('k4_shape', '-')}: max|kernel - plain| "
+        f"{res['k4_err']:.3g}; einsum path "
+        f"{res.get('einsum_ms', float('nan')):.1f} ms, loss "
+        f"{res.get('einsum_loss', float('nan')):.6f}")
+    return res
+
+
+def _family_serving(cfg, model, params, ServingEngine, Request, tr,
+                    torch) -> dict:
+    """19(c): the engine (8 requests, 4 slots).  Every first token is held
+    against ``Model.prefill`` of its prompt alone, from the cache the
+    engine found in the request's slot: zeros in a fresh slot; in a
+    reused one the recurrent states its last request left, where the
+    reference's prefill starts (ROADMAP C16), and the number of first
+    tokens that then differ from a prefill from zeros is logged."""
+    import numpy as np
+
+    TimedEngine = timed_engine(ServingEngine)
+    rng = np.random.default_rng(3)
+    if cfg.family == "moe":
+        # a MoE prompt's tokens must split into min(n_groups, T) groups
+        # (ROADMAP C15): multiples of 32
+        lengths = rng.integers(1, 9, size=SERVE_N) * 32
+    else:
+        lengths = rng.integers(16, 257, size=SERVE_N)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n), dtype=np.int32)
+               for n in lengths]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = TimedEngine(model, params, max_batch=SERVE_SLOTS,
+                      max_len=SERVE_LEN)
+    t0 = time.time()
+    out = eng.run([Request(i, p, max_new=SERVE_NEW)
+                   for i, p in enumerate(prompts)])
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(sorted(out) == list(range(SERVE_N)), f"19(c) {cfg.name}: "
+          "requests unanswered")
+    check(all(len(v) == SERVE_NEW for v in out.values()),
+          f"19(c) {cfg.name}: short answers")
+    check(len(eng.found) == SERVE_N, f"19(c) {cfg.name}: admissions")
+    differ = 0
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            toks = {"tokens": torch.from_numpy(p)[None].cuda()}
+            logits, _ = model.prefill(params, toks,
+                                      dict(eng.found[i], pos=0))
+            first = int(torch.argmax(logits[0].float()))
+            check(first == out[i][0], f"19(c) {cfg.name}: request {i}: "
+                  f"first token {out[i][0]}, prefill alone {first}")
+            if i >= SERVE_SLOTS:
+                logits, _ = model.prefill(params, toks,
+                                          model.init_cache(1, SERVE_LEN))
+                differ += int(torch.argmax(logits[0].float())) != first
+    decode_tokens = sum(len(v) - 1 for v in out.values())
+    res = {"wall_s": wall, "decode_steps": eng.decode_steps,
+           "decode_tokens_per_s": decode_tokens / eng.decode_s,
+           "peak_gb": peak, "prompts": [int(n) for n in lengths],
+           "reused_slot_first_tokens_unlike_fresh": differ}
+    log(f"families (c) {cfg.name}: ServingEngine, {SERVE_N} requests, "
+        f"prompts {res['prompts']}, max_new={SERVE_NEW}, {SERVE_SLOTS} "
+        f"slots, max_len={SERVE_LEN}: wall {wall:.3f}s; "
+        f"{eng.decode_steps} decode steps in {eng.decode_s:.3f}s, "
+        f"{res['decode_tokens_per_s']:.1f} decode tokens/s; peak device "
+        f"memory {peak:.2f} GB; every first token equals Model.prefill of "
+        f"its prompt alone from the slot's cache; {differ} of the "
+        f"{SERVE_N - SERVE_SLOTS} in reused slots differ from a prefill "
+        "from zeros (C16)")
+    return res
+
+
+def _family_decode(cfg, model, params, encdec, tr, torch) -> dict:
+    """19(c) for the VLM and the encdec: ``Model.prefill`` of 2 prompts
+    of 128 tokens with their 256 patches or 256 frames, then
+    ``SERVE_NEW`` greedy ``decode_step``s."""
+    B, n, extra = 2, 128, 256
+    toks = tr.randint(tr.PRNGKey(5), (B, n), 0, cfg.vocab, "cuda")
+    if cfg.family == "encdec":
+        batch = {"tokens": toks, "frames": tr.normal(
+            tr.PRNGKey(6), (B, extra, cfg.d_model), "cuda")}
+        cache = encdec.init_encdec_cache(cfg, B, n + SERVE_NEW, extra,
+                                         "cuda")
+        start = n
+    else:
+        batch = {"tokens": toks, "patches": tr.normal(
+            tr.PRNGKey(6), (B, extra, cfg.vlm.patch_dim), "cuda")}
+        cache = model.init_cache(B, extra + n + SERVE_NEW)
+        start = extra + n
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.time()
+        logits, cache = model.prefill(params, batch, cache)
+        tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t0
+        toks = [tok]
+        t0 = time.time()
+        for _ in range(SERVE_NEW):
+            tok, cache = model.decode_step(params, {"tokens": tok[:, None]},
+                                           cache)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.time() - t0
+    gen = torch.stack(toks, 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(logits).all()), f"19(c) {cfg.name}: "
+          "non-finite prefill logits")
+    check(bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+          f"19(c) {cfg.name}: token ids out of range")
+    check(cache["pos"] == start + SERVE_NEW,
+          f"19(c) {cfg.name}: cache at {cache['pos']}")
+    res = {"prefill_ms": prefill_s * 1e3,
+           "decode_tokens_per_s": B * SERVE_NEW / decode_s,
+           "peak_gb": peak}
+    kind = "patches" if cfg.family == "vlm" else "frames"
+    log(f"families (c) {cfg.name}: Model.prefill of B={B} x {n} tokens "
+        f"with {extra} {kind} {res['prefill_ms']:.1f} ms, then "
+        f"{SERVE_NEW} decode_steps: {res['decode_tokens_per_s']:.1f} "
+        f"decode tokens/s; peak device memory {peak:.2f} GB")
+    return res
+
+
+def _family_card_vs_cpu(name: str, convert, get_config, Model, moe, tr,
+                        torch) -> dict:
+    """19(d): the smoke width in float32, card against CPU on the same
+    weights and batch: logits; the MoE's top-k ids (equal) and gates
+    (1e-6) from each device's routing, and the dispatch buffers of one
+    routing (equal); for the hybrid and the SSM prefill + decode against
+    the full forward."""
+    from types import SimpleNamespace
+    cfg = get_config(name).smoke().replace(dtype="float32")
+    tol = FAMILY_CPU_TOL.get(cfg.family, 1e-4)
+    m_cpu, m_gpu = Model(cfg, "cpu"), Model(cfg, "cuda")
+    p_cpu = m_cpu.init_params(tr.PRNGKey(0))
+    p_gpu = convert.lm_params_from_numpy(convert.lm_params_to_numpy(p_cpu),
+                                         cfg, "cuda")
+    b = _family_batch(cfg, 2, 32, 7, tr, "cpu")
+    with torch.no_grad():
+        want = m_cpu.forward(p_cpu, b).logits
+        got = m_gpu.forward(p_gpu, {k: v.cuda() for k, v in b.items()}
+                            ).logits
+    res = {"logits_err": attn_err(got.cpu(), want)}
+    check(res["logits_err"] < tol, f"19(d) {name}: card logits "
+          f"{res['logits_err']:.3g} from the CPU's")
+    if cfg.family == "moe":
+        w = p_cpu.layers[0].moe
+        x = tr.normal(tr.PRNGKey(8), (2, 16, cfg.d_model), "cpu")
+        E, k = cfg.moe.n_experts, cfg.moe.top_k
+        C = max(1, int(16 * k * cfg.moe.capacity_factor / E))
+        (e_c, g_c, _), (e_g, g_g, _) = (
+            moe._route(x.to(dev), w.gate.to(dev), cfg)
+            for dev in ("cpu", "cuda"))
+        check(torch.equal(e_c, e_g.cpu()), f"19(d) {name}: top-k ids")
+        res["gate_err"] = attn_err(g_g.cpu(), g_c)
+        check(res["gate_err"] < 1e-6, f"19(d) {name}: gates")
+        # the dispatch of one routing on both devices: equal, exactly
+        bufs = [[t.cpu() for t in moe._dispatch_buffers(
+            e_c.to(dev), g_c.to(dev), 16, E, C)] for dev in ("cpu", "cuda")]
+        check(all(torch.equal(a, b) for a, b in zip(*bufs)),
+              f"19(d) {name}: dispatch buffers")
+        ffn = [moe.moe_ffn(SimpleNamespace(**{a: getattr(w, a).to(dev) for
+                                              a in ("gate", "w1", "w2",
+                                                    "w3")}),
+                           x.to(dev), cfg)[0].cpu() for dev in ("cpu",
+                                                                "cuda")]
+        res["moe_ffn_err"] = attn_err(ffn[1], ffn[0])
+        check(res["moe_ffn_err"] < 1e-4, f"19(d) {name}: moe_ffn")
+    if cfg.family in ("hybrid", "ssm"):
+        toks = b["tokens"].cuda()
+        S = toks.shape[1] - 1
+        with torch.no_grad():
+            full = m_gpu.forward(p_gpu, {"tokens": toks}).logits
+            cache = m_gpu.init_cache(2, S + 1)
+            _, cache = m_gpu.prefill(p_gpu, {"tokens": toks[:, :S]}, cache)
+            dec = m_gpu.forward(p_gpu, {"tokens": toks[:, S:]},
+                                cache=cache).logits
+        res["decode_err"] = attn_err(dec[:, 0], full[:, -1])
+        check(res["decode_err"] < tol, f"19(d) {name}: prefill + decode "
+              f"{res['decode_err']:.3g} from the full forward")
+    log(f"families (d) {name} at smoke width, float32: card vs CPU " +
+        ", ".join(f"{k} {v:.3g}" for k, v in res.items()))
+    return res
+
+
+def phase_families(convert, tr, fa, ref, get_config, Model, ServingEngine,
+                   Request, torch) -> dict:
+    """The other LM families on the card: (a) each at its published width
+    from ``init_params(PRNGKey(0))`` (depth cut where logged), (b) one
+    scoring forward through the flash path against the einsum path, K4
+    against its plain version on the family's own q/k/v, (c) serving,
+    (d) card = CPU at the smoke width.  Returns the phase's numbers with
+    K4's launches and max error on the path."""
+    from repro_torch.models import encdec, moe, transformer
+
+    t_phase = time.time()
+    card = gpu_line()
+    out = {"card": card}
+    launches, err = 0, 0.0
+    for name, depth, why, expect, served in FAMILIES:
+        cfg = get_config(name).replace(attn_impl="flash")
+        full_layers = cfg.n_layers
+        if depth is not None:
+            cfg = cfg.replace(n_layers=depth)
+        model = Model(cfg, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params = model.init_params(tr.PRNGKey(0))
+        torch.cuda.synchronize()
+        draw_s = time.time() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+        row = {"layers": cfg.n_layers, "of": full_layers, "cut": why,
+               "params": n_params, "gb": n_bytes / 1e9, "draw_s": draw_s,
+               "draw_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"families (a) {name} [{cfg.family}]: L={cfg.n_layers} of "
+            f"{full_layers} d={cfg.d_model} H={cfg.n_heads} "
+            f"KV={cfg.n_kv_heads} Hd={cfg.resolved_head_dim} ff={cfg.d_ff} "
+            f"V={cfg.vocab} {cfg.dtype}: {n_params} parameters "
+            f"({n_bytes / 1e9:.2f} GB) drawn in {draw_s:.2f}s, peak "
+            f"{row['draw_peak_gb']:.2f} GB; "
+            + (f"depth cut: {why}" if why else "depth and widths not cut"))
+        row["b"] = _family_scoring(cfg, model, params, expect, fa, ref,
+                                   transformer, Model, tr, torch)
+        launches += row["b"]["k4_launches"]
+        err = max(err, row["b"]["k4_err"])
+        fa.reset_launches()
+        if served:
+            row["c"] = _family_serving(cfg, model, params, ServingEngine,
+                                       Request, tr, torch)
+        else:
+            row["c"] = _family_decode(cfg, model, params, encdec, tr, torch)
+        check(fa.LAUNCHES["flash_attention"] == 0,
+              f"19(c) {name}: a cache path ran the flash kernel")
+        del params, model
+        torch.cuda.empty_cache()
+        row["d"] = _family_card_vs_cpu(name, convert, get_config, Model,
+                                       moe, tr, torch)
+        out[name] = row
+    out.update(wall=time.time() - t_phase, k4_launches=launches,
+               k4_err=err)
+    return out
 
 def flash_d128_timing(fa, torch) -> dict:
     """The tensor-core kernel at head dim 128 (the d = 128 template, which
@@ -3638,6 +4044,12 @@ def main() -> int:
     log(f"training: phase 18 wall {train['wall']:.1f}s of its "
         f"{TRAIN_BUDGET_S:.0f}s budget; " + json.dumps(train))
     clock("18")
+    fam = phase_families(convert, tr, fa, ref, get_config, Model,
+                         ServingEngine, Request, torch)
+    errs["flash_attention"] = max(errs["flash_attention"], fam["k4_err"])
+    log(f"families: phase 19 wall {fam['wall']:.1f}s of its "
+        f"{FAMILY_BUDGET_S:.0f}s budget; " + json.dumps(fam))
+    clock("19")
     rows = phase_timing(tr, ref, rs, torch, errs, launches, largest)
     if sass:
         rows[-1]["sass_level_loop"] = sass
@@ -3662,7 +4074,9 @@ def main() -> int:
     rows.append(phase_flash_timing(fa, ref, torch,
                                    launches["flash_attention"],
                                    errs["flash_attention"]))
-    rows[-1].update(fma_f32_max_abs_err=f32_err,
+    rows[-1].update(families_path_launches=fam["k4_launches"],
+                    families_path_max_abs_err=fam["k4_err"],
+                    fma_f32_max_abs_err=f32_err,
                     early_rows_excess=early["kernel"],
                     early_rows_sdpa_excess=early["sdpa"],
                     sass_opcodes=list(tc_sass.values()))

@@ -25,8 +25,9 @@ format.  Keys (``{j}``/``{i}`` are column / block indices):
                                    above ``max_cat_classes``
 =================================  ======================================
 
-``lm_params_from_numpy`` carries an LM's weights across: the JAX package's
-parameter tree as numpy arrays → the port's ``DenseLM`` module, and
+``lm_params_from_numpy`` carries an LM's weights across, of any family
+and in either tree form (stacked layers or a list of them): the JAX
+package's parameter tree as numpy arrays → the port's ``LM`` module, and
 ``opt_state_from_numpy`` its optimizer state; ``lm_params_to_numpy`` and
 ``opt_state_to_numpy`` carry both back as numpy trees of the reference's
 structure.  ``gnn_params_from_numpy`` does the same for a GCN / GAT.
@@ -48,7 +49,7 @@ from repro_torch.core.pipeline import SyntheticGraphPipeline
 from repro_torch.core.structure import KroneckerFit
 from repro_torch.models.gnn import GNN, GNNConfig, gnn_from_params
 from repro_torch.models.params import tree_map
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import LM
 from repro_torch.tabular.schema import TableSchema
 from repro_torch.tabular.vgm import VGMParams
 from repro_torch.training.optimizer import OptState
@@ -214,13 +215,13 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def lm_params_from_numpy(tree, cfg, device="cuda") -> DenseLM:
+def lm_params_from_numpy(tree, cfg, device="cuda") -> LM:
     """The JAX package's LM parameter tree as numpy arrays
-    (``jax.tree.map(np.asarray, params)``) → the port's weights on
-    ``device``.  Layouts are kept (``wq`` (D, H, Hd), ``wo`` (H, Hd, D),
-    ...); stacked ``(L, ...)`` leaves are split per layer."""
-    return DenseLM(tree_map(lambda a: tensor_from_numpy(a).to(device), tree),
-                   cfg)
+    (``jax.tree.map(np.asarray, params)``), of any family → the port's
+    weights on ``device``.  Layouts and the tree's form are kept (``wq``
+    (D, H, Hd), ``wo`` (H, Hd, D), stacked ``(L, ...)`` leaves or lists of
+    layers, MoE experts stacked or listed)."""
+    return LM(tree_map(lambda a: tensor_from_numpy(a).to(device), tree), cfg)
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -233,9 +234,10 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def lm_params_to_numpy(params: DenseLM):
+def lm_params_to_numpy(params: LM):
     """The port's weights → the JAX package's parameter tree as numpy
-    arrays (stacked ``(L, ...)`` leaves with ``cfg.scan_layers``)."""
+    arrays, in the form they were given (stacked ``(L, ...)`` leaves or
+    lists)."""
     return tree_map(tensor_to_numpy, params.tree())
 
 

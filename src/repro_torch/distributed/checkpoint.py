@@ -3,7 +3,7 @@
 other wrote.
 
 * One ``leaf_XXXXX.npy`` per leaf of the tree, in jax's flattening order
-  of the tree (a ``DenseLM`` stands for its ``tree()``), and a
+  of the tree (an ``LM`` stands for its ``tree()``), and a
   ``manifest.json`` with the step and each leaf's ``keystr`` name, file,
   shape and dtype name.  bfloat16 is stored as its uint16 bit pattern
   (``.npy`` has no bfloat16), under the dtype name ``"bfloat16"``.
@@ -16,7 +16,7 @@ other wrote.
 * Retention: the last ``keep`` checkpoints stay, older ones are deleted.
 
 ``restore`` reads into the structure of a tree like the one saved: each
-tensor leaf comes back on that leaf's device, a ``DenseLM`` as a new one
+tensor leaf comes back on that leaf's device, an ``LM`` as a new one
 of the same config, a numpy leaf as numpy.  The reference's elastic
 restore onto another mesh waits for the sharding port (ROADMAP A7(c)).
 """

@@ -1,5 +1,5 @@
 """Transformer building blocks: the port of the JAX package's
-``models/layers.py`` for the dense family.
+``models/layers.py``.
 
 The math is plain functions on tensors, taking any object with the
 weights as attributes; the weights live in small ``nn.Module``s
@@ -11,10 +11,10 @@ repeated.
 
 The reference's ``constrain`` sharding calls are dropped: without a mesh
 they are no-ops, and this port runs on one card.  ``multihead_attention``
-keeps the causal self-attention paths the dense family runs (cache-less,
-decode and prefill through a cache, and the flash kernel); the
-bidirectional and cross-attention arguments (``causal``, ``memory``) and
-``kv_positions`` serve only encoder-decoder models, not ported yet.
+keeps every path of the reference: causal self-attention (cache-less,
+decode and prefill through a cache, and the flash kernel), bidirectional
+self-attention (``causal=False``, the encoder's) and cross-attention
+(``memory``, no RoPE on either side), and ``kv_positions``.
 
 A KV cache is written in place (JAX returns new arrays): ``kv_cache``'s
 tensors hold the new K/V after the call, and the returned pair is them.
@@ -48,6 +48,20 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def group_norm_heads(x: torch.Tensor, w: torch.Tensor, n_heads: int,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over per-head channels; x: (..., H*K), w: (H*K,).  The
+    variance is the population one, as ``jnp.var`` takes it."""
+    dt = x.dtype
+    shp = x.shape
+    x = x.reshape(shp[:-1] + (n_heads, shp[-1] // n_heads)).float()
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    x = x.reshape(shp)
     return (x * w.float()).to(dt)
 
 
@@ -178,35 +192,44 @@ class _FlashForwardOnly(torch.autograd.Function):
             "Pallas kernel); train with attn_impl='einsum'")
 
 
-def multihead_attention(w, x, *, cfg, positions, kv_cache=None,
-                        cache_pos=None):
-    """Grouped-query causal self-attention.
+def multihead_attention(w, x, *, cfg, positions, kv_positions=None,
+                        causal=True, kv_cache=None, cache_pos=None,
+                        memory=None):
+    """Grouped-query attention.
 
     x: (B, S, D).  With ``kv_cache=(ck, cv)`` of shape (B, T, KV, Hd) the new
     K/V are written at ``cache_pos`` (prefill) or at each row's position
     (decode, S == 1) and attention runs over the cache; the call then
-    returns ``(out, (ck, cv))``.  Without a cache, and with
-    ``cfg.attn_impl == "flash"`` and ``S % 128 == 0``, attention runs in
-    the flash kernel, which masks by index, not by ``positions``, and
-    has no backward.
+    returns ``(out, (ck, cv))``.  With ``memory`` (B, T, D) keys and values
+    come from memory (cross-attention) and neither side gets RoPE;
+    ``causal=False`` or ``memory`` masks nothing.  Without a cache, for
+    causal self-attention with ``cfg.attn_impl == "flash"`` and
+    ``S % 128 == 0``, attention runs in the flash kernel, which masks by
+    index, not by ``positions``, and has no backward.
     """
     B, S, D = x.shape
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     G = H // KV
+    cross = memory is not None
 
     q = torch.einsum("bsd,dhk->bshk", x, w.wq)
-    k = torch.einsum("btd,dkh->btkh", x, w.wk)
-    v = torch.einsum("btd,dkh->btkh", x, w.wv)
+    src = memory if cross else x
+    k = torch.einsum("btd,dkh->btkh", src, w.wk)
+    v = torch.einsum("btd,dkh->btkh", src, w.wv)
 
-    cos, sin = rope_cos_sin(positions, Hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if not cross:
+        cos, sin = rope_cos_sin(positions, Hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        if kv_positions is not None:
+            cos, sin = rope_cos_sin(kv_positions, Hd, cfg.rope_theta)
+        k = apply_rope(k, cos, sin)
 
     new_cache = None
     if kv_cache is not None:
         k, v = new_cache = _write_cache(kv_cache, k, v, positions, cache_pos)
 
-    if cfg.attn_impl == "flash" and kv_cache is None and S % 128 == 0:
+    if (cfg.attn_impl == "flash" and kv_cache is None and not cross
+            and causal and S % 128 == 0):
         # query head (b·KV + kv)·G + g reads kv head b·KV + kv; the kernel
         # takes contiguous tensors (a reshape may return a strided view)
         qf = q.reshape(B, S, KV, G, Hd).permute(0, 2, 3, 1, 4)
@@ -222,11 +245,15 @@ def multihead_attention(w, x, *, cfg, positions, kv_cache=None,
     scale = 1.0 / float(Hd) ** 0.5
     if kv_cache is not None:
         kpos = torch.arange(T, dtype=torch.int32, device=x.device)
-        kpos = kpos[None].expand(B, T)
+        kpos, qpos = kpos[None].expand(B, T), positions
+    elif causal and not cross:
+        kpos, qpos = positions, positions
     else:
-        kpos = positions
+        # bidirectional / cross: kpos = 0 <= qpos makes the mask all-true
+        kpos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+        qpos = positions.clamp(min=0)
     o = chunked_causal_attention(
-        q, k, v, positions, kpos, scale,
+        q, k, v, qpos, kpos, scale,
         scores_dtype=getattr(torch, cfg.attn_scores_dtype))
     o = o.reshape(B, S, H, Hd)
     out = torch.einsum("bshk,hkd->bsd", o, w.wo)

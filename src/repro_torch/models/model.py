@@ -1,9 +1,9 @@
-"""Model API of the port, over the dense LM family.
+"""Model API of the port, over every LM family.
 
 ``Model(cfg, device)`` exposes what the JAX package's ``Model`` does:
 
 * ``param_defs / init_params``: the parameter tree and its random weights
-  (the JAX package's weights for the same key) as a ``DenseLM`` module;
+  (the JAX package's weights for the same key) as an ``LM`` module;
 * ``abstract_params / param_dims``: each leaf's ``TensorSpec`` (shape and
   dtype) and logical dims, without drawing it;
 * ``loss(params, batch)``: the training objective (``training.steps``
@@ -11,12 +11,21 @@
 * ``forward(params, batch, cache=None)``;
 * ``prefill(params, batch, cache)``: context ingest, writes the cache;
 * ``decode_step(params, batch, cache)``: one token, updates the cache;
-* ``cache_abstract(batch, seq)`` / ``init_cache(batch, seq)``;
+* ``cache_abstract(batch, seq)`` / ``init_cache(batch, seq)`` /
+  ``cache_dims()``;
 * ``input_specs(shape)`` / ``batch_dims(batch)``: the ``TensorSpec`` of
   every input of a ``ShapeSpec`` cell, and their logical dims.
 
+Shape semantics of the special families, as in the reference:
+
+* ``encdec``: ``seq_len`` is split ``encoder_frac`` / rest between stub
+  audio frames and decoder tokens; decode runs the decoder with a self
+  cache of ``seq_len − frames`` and a cross cache over the frames.
+* ``vlm``: ``n_patches`` stub patch embeddings are prepended; the text is
+  ``seq_len − n_patches`` tokens, so the whole context matches the cell.
+
 Everything runs on ``device`` (``"cuda"`` unless the caller asks for the
-CPU).  Other families raise ``NotImplementedError`` (ROADMAP A7(b)).
+CPU).  An unknown family raises ``ValueError`` where it is first used.
 """
 from __future__ import annotations
 
@@ -25,9 +34,10 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.params import (TensorSpec, abstract_params,
-                                       init_params, param_dims)
+                                       init_params, param_dims, torch_dtype)
 
 BATCH_DIMS = {
     "tokens": ("batch", "seq"),
@@ -41,32 +51,35 @@ BATCH_DIMS = {
 
 class Model:
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        tf_mod._require_dense(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        self._encdec = cfg.family == "encdec"
+        self._mod = encdec_mod if self._encdec else tf_mod
 
     # -- parameters ---------------------------------------------------------
     def param_defs(self):
+        if self._encdec:
+            return encdec_mod.encdec_defs(self.cfg)
         return tf_mod.stack_defs(self.cfg)
 
     def abstract_params(self):
         return abstract_params(self.param_defs(), self.cfg.dtype)
 
-    def init_params(self, key: torch.Tensor) -> tf_mod.DenseLM:
+    def init_params(self, key: torch.Tensor) -> tf_mod.LM:
         """``key``: a ``repro_torch.random`` key (``random.PRNGKey(0)``)."""
         tree = init_params(self.param_defs(), key, self.cfg.dtype,
                            self.device)
-        return tf_mod.DenseLM(tree, self.cfg)
+        return tf_mod.LM(tree, self.cfg)
 
     def param_dims(self):
         return param_dims(self.param_defs())
 
     # -- steps ---------------------------------------------------------------
     def loss(self, params, batch):
-        return tf_mod.lm_loss(params, batch, self.cfg)
+        return self._mod.lm_loss(params, batch, self.cfg)
 
     def forward(self, params, batch, cache=None) -> tf_mod.ForwardOut:
-        return tf_mod.forward(params, batch, self.cfg, cache)
+        return self._mod.forward(params, batch, self.cfg, cache)
 
     def prefill(self, params, batch, cache):
         out = self.forward(params, batch, cache=cache)
@@ -80,22 +93,41 @@ class Model:
 
     # -- caches ---------------------------------------------------------------
     def cache_abstract(self, batch: int, seq: int):
-        return tf_mod.cache_spec(self.cfg, batch, seq)
+        cfg = self.cfg
+        if self._encdec:
+            fr = int(seq * cfg.encdec.encoder_frac)
+            return encdec_mod.encdec_cache_spec(cfg, batch, seq - fr, fr)
+        return tf_mod.cache_spec(cfg, batch, seq)
 
     def init_cache(self, batch: int, seq: int):
-        return tf_mod.init_cache(self.cfg, batch, seq, self.device)
+        return tf_mod.zeros_cache(self.cache_abstract(batch, seq),
+                                  self.device)
+
+    def cache_dims(self):
+        dims = dict(tf_mod.CACHE_DIMS)
+        dims.update(xk=tf_mod.CACHE_DIMS["k"], xv=tf_mod.CACHE_DIMS["v"])
+        return dims
 
     # -- input specs ----------------------------------------------------------
     def input_specs(self, shape: ShapeSpec) -> Dict[str, Any]:
         """Shapes and dtypes of one cell's inputs (nothing allocated)."""
+        cfg = self.cfg
         B, S, i32 = shape.global_batch, shape.seq_len, torch.int32
-        if shape.kind == "train":
-            return {"tokens": TensorSpec((B, S), i32),
-                    "labels": TensorSpec((B, S), i32)}
-        if shape.kind == "prefill":
-            return {"tokens": TensorSpec((B, S), i32)}
-        # decode: one token against a cache of length seq_len
-        return {"tokens": TensorSpec((B, 1), i32)}
+        SD = TensorSpec
+        dt = torch_dtype(cfg.dtype)
+        if shape.kind == "decode":
+            # one token against a cache of length seq_len
+            return {"tokens": SD((B, 1), i32)}
+        keys = ("tokens", "labels") if shape.kind == "train" else ("tokens",)
+        if self._encdec:
+            fr = int(S * cfg.encdec.encoder_frac)
+            return {"frames": SD((B, fr, cfg.d_model), dt),
+                    **{k: SD((B, S - fr), i32) for k in keys}}
+        if cfg.family == "vlm":
+            p = cfg.vlm.n_patches
+            return {**{k: SD((B, S - p), i32) for k in keys},
+                    "patches": SD((B, p, cfg.vlm.patch_dim), dt)}
+        return {k: SD((B, S), i32) for k in keys}
 
     def batch_dims(self, batch: Dict[str, Any]):
         return {k: BATCH_DIMS[k] for k in batch}

@@ -6,8 +6,12 @@ Model builders produce nested dicts (and, for unstacked layers, lists) of
 ``init_params`` makes from the same key: leaves are taken in jax's tree
 order (dict keys sorted, lists in order), the key is split into one key
 per leaf, and each ``normal`` leaf is ``random.normal(key, shape) * scale``
-in float32, then cast to its dtype.  Leaves are drawn one at a time, so the
-int64 temporaries of the threefry draw stay the size of one leaf.
+in float32, then cast to its dtype.  Leaves are drawn one at a time, and
+a leaf in pieces of ``INIT_PIECE`` elements (``random.normal_range``),
+so the temporaries of the threefry draw and of the normal's float math
+stay the size of a piece: a full-width model's largest leaf (rwkv6-7b's
+``(32, 4096, 14336)`` ``ck``) would otherwise hold ~24 bytes an element
+of temporaries beside the weights.
 ``abstract_params`` gives each leaf's shape and dtype without drawing it,
 ``param_dims`` its logical dims (for the sharding port to come).
 """
@@ -82,6 +86,11 @@ def param_dims(defs):
     return tree_map(lambda d: d.dims, defs)
 
 
+#: elements drawn at once in a ``normal`` leaf: on a card, and on the CPU
+#: (whose pieces stay in cache, as ``random.bits`` takes them)
+INIT_PIECE, INIT_CPU_PIECE = 1 << 26, 1 << 18
+
+
 def _init_one(d: ParamDef, key: torch.Tensor, dtype, device) -> torch.Tensor:
     dt = _leaf_dtype(d, dtype)
     if d.init == "zeros":
@@ -97,7 +106,13 @@ def _init_one(d: ParamDef, key: torch.Tensor, dtype, device) -> torch.Tensor:
         if n_stack and len(d.shape) > 1 + n_stack:
             fan_in = math.prod(d.shape[n_stack:-1])
         scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-        return (trandom.normal(key, d.shape, device) * scale).to(dt)
+        out = torch.empty(d.shape, dtype=dt, device=device)
+        flat = out.view(-1)
+        piece = INIT_CPU_PIECE if out.device.type == "cpu" else INIT_PIECE
+        for lo in range(0, flat.numel(), piece):
+            hi = min(flat.numel(), lo + piece)
+            flat[lo:hi] = trandom.normal_range(key, lo, hi, device) * scale
+        return out
     raise ValueError(f"unknown init {d.init!r}")
 
 

@@ -133,7 +133,12 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0, device=None) -> torch.Tensor:
     """``jax.random.uniform`` in float32, with jax's order of operations:
     ``max(minval, f * (maxval - minval) + minval)`` in float32."""
-    f = bits_to_unit_float(bits(key, shape, device))
+    return _uniform_from_bits(bits(key, shape, device), minval, maxval)
+
+
+def _uniform_from_bits(b: torch.Tensor, minval: float, maxval: float
+                       ) -> torch.Tensor:
+    f = bits_to_unit_float(b)
     lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
@@ -174,9 +179,23 @@ def normal(key: torch.Tensor, shape: Sequence[int], device=None
            ) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` with
     ``u`` uniform on ``[nextafter(-1, 0), 1)``."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0, device)
+    return _normal_from_bits(bits(key, shape, device))
+
+
+def _normal_from_bits(b: torch.Tensor) -> torch.Tensor:
+    u = _uniform_from_bits(b, _NORMAL_LO, 1.0)
     return erfinv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32,
                                     device=u.device)
+
+
+def normal_range(key: torch.Tensor, start: int, stop: int, device=None
+                 ) -> torch.Tensor:
+    """``normal(key, shape).reshape(-1)[start:stop]`` for any shape of at
+    least ``stop`` elements, drawing only those: a large leaf is drawn
+    in pieces, so the float temporaries stay the size of a piece."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    return _normal_from_bits(bits_at(key, torch.arange(
+        start, stop, dtype=torch.int64, device=device)))
 
 
 #: ``np.finfo(np.float32).tiny``

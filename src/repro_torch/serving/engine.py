@@ -9,10 +9,19 @@ Per-slot state: current position, active request, generated tokens.
 ``run`` drives the loop until every request is done.  The greedy
 ``argmax`` is taken in float32.  A slot's prefill goes through the cache,
 so attention takes the einsum path, as in the reference (the flash kernel
-serves only cache-less scoring).  The slot is prefilled through a
-``(L, 1, T, KV, Hd)`` view of the cache with ``pos = 0``; the forward
-writes that view in place, which is the reference's write-back of the
-slot.
+serves only cache-less scoring).  The slot is prefilled through a view of
+the cache's slot (``(L, 1, ...)``) with ``pos = 0``; attention writes its
+K/V into that view in place, and every tensor of the returned cache (the
+SSM and WKV states are new tensors) is then written back into the slot
+from index 0 of each further dim, as the reference's
+``dynamic_update_slice_in_dim`` writes it: a returned tensor shorter than
+the slot's (a hybrid prompt shorter than ``d_conv - 1`` leaves a shorter
+conv buffer, ROADMAP C13) updates only its leading rows.  As in the
+reference, the prefill reads the slot's cache as it finds it: a reused
+slot's SSM or WKV state is where the next prompt's scan starts (C16).
+The engine
+passes tokens and positions only, as the reference's does: a VLM's
+patches and an encdec's frames never reach it (ROADMAP C14).
 """
 from __future__ import annotations
 
@@ -23,6 +32,15 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+
+
+def _update_slot(full: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """``full[:, slot]`` ← ``new[:, 0]`` at index 0 of every further dim:
+    ``dynamic_update_slice_in_dim(full, new, slot, axis=1)``."""
+    dst = full[(slice(None), slice(slot, slot + 1))
+               + tuple(slice(0, n) for n in new.shape[2:])]
+    if dst.data_ptr() != new.data_ptr():      # K/V were written in place
+        dst.copy_(new)
 
 
 @dataclasses.dataclass
@@ -67,6 +85,9 @@ class ServingEngine:
         one = {k: c[:, slot:slot + 1] for k, c in self.cache.items()
                if k != "pos"}
         out = self.model.forward(self.params, batch, cache=dict(one, pos=0))
+        for k, new in out.cache.items():
+            if k != "pos":
+                _update_slot(self.cache[k], new, slot)
         return self._next_tokens(out.logits)
 
     # -- scheduling ---------------------------------------------------------

@@ -9,7 +9,7 @@ cosine decay to ``min_lr_frac``), every gradient clipped by one global
 norm, bias-corrected moments, and decay ``lr · weight_decay · p`` inside
 the step, on every leaf (norms and embeddings too).
 
-Trees are the port's dict/list trees in jax's leaf order (a ``DenseLM``
+Trees are the port's dict/list trees in jax's leaf order (an ``LM``
 stands for its ``tree()``).  ``apply_update`` updates the state's tensors
 in place (the reference returns new arrays), so a full-width state is
 held once.  The reference's ZeRO sharding of the state waits for the

@@ -4,7 +4,7 @@
 batch) → (params, opt_state, {"loss", "lr", "grad_norm"})``: the loss and
 its gradients by torch autograd, microbatched gradient accumulation in
 float32, then the AdamW update (``optimizer.apply_update``).  The step
-runs eagerly and updates ``params`` (a ``DenseLM``) and ``opt_state`` in
+runs eagerly and updates ``params`` (an ``LM``) and ``opt_state`` in
 place; the returned ones are the same objects.
 
 With ``cfg.microbatches = M > 1`` the batch splits M ways along its first

@@ -29,7 +29,10 @@ follows the CPU's from the same params and optimizer state (TF32 off):
 losses within 1e-5, masters within 5e-5, a tenth of the lr (Adam's first
 update lr·g/(|g| + 1e-8) turns last-bit gradient differences of weights
 whose gradient is near 1e-8 into a part of lr); a checkpoint written on
-the card restores on the CPU exactly."""
+the card restores on the CPU exactly.  The other LM families at their
+smoke widths in float32 give the CPU's logits within 1e-4 (the hybrid's
+5e-4, the spread of its SSD chunks in float32), the MoE router's ids and
+dispatch buffers exactly, and prefill + decode the full forward's."""
 import numpy as np
 import pytest
 import torch
@@ -987,3 +990,84 @@ def test_flash_route_raises_under_autograd_on_card(cuda):
     assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
     with pytest.raises(RuntimeError, match="no backward"):
         torch.autograd.grad(loss, ws)
+
+
+#: the other LM families (ROADMAP A7(b)) at their smoke widths
+FAMILY_ARCHS = ["qwen3-moe-30b-a3b", "llama4-scout-17b-16e", "pixtral-12b",
+                "zamba2-1.2b", "rwkv6-7b", "seamless-m4t-medium"]
+
+
+def _family_batch(cfg, dev, B=2, S=32):
+    toks = tr.randint(tr.PRNGKey(1), (B, S), 0, cfg.vocab, dev)
+    if cfg.family == "vlm":
+        return {"tokens": toks[:, cfg.vlm.n_patches:], "patches": tr.normal(
+            tr.PRNGKey(2), (B, cfg.vlm.n_patches, cfg.vlm.patch_dim), dev)}
+    if cfg.family == "encdec":
+        return {"tokens": toks[:, S // 2:], "frames": tr.normal(
+            tr.PRNGKey(2), (B, S // 2, cfg.d_model), dev)}
+    return {"tokens": toks}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_on_card_equals_cpu(cuda, arch):
+    """float32 at the smoke width, the same weights: logits within 1e-4
+    (the hybrid's 5e-4: its SSD chunks' float32 spread, the CPU tests'
+    ``logit_tol``); the flash path runs K4 on every causal
+    self-attention and matches the einsum path within 1e-4."""
+    from repro_torch import convert
+    cfg = get_config(arch).smoke().replace(dtype="float32")
+    tol = 5e-4 if cfg.family == "hybrid" else 1e-4
+    p_cpu = Model(cfg, "cpu").init_params(tr.PRNGKey(0))
+    p_gpu = convert.lm_params_from_numpy(convert.lm_params_to_numpy(p_cpu),
+                                         cfg, cuda)
+    # 128 positions through the decoder: the flash route's multiple
+    b = _family_batch(cfg, "cpu", S=256 if cfg.family == "encdec" else 128)
+    want = Model(cfg, "cpu").forward(p_cpu, b).logits
+    bg = {k: v.to(cuda) for k, v in b.items()}
+    got = Model(cfg, cuda).forward(p_gpu, bg).logits
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)
+    fa.reset_launches()
+    flash = Model(cfg.replace(attn_impl="flash"), cuda).forward(p_gpu, bg)
+    n_attn = (0 if cfg.family == "ssm" else
+              -(-cfg.n_layers // cfg.hybrid.attn_every)
+              if cfg.family == "hybrid" else cfg.n_layers)
+    assert fa.LAUNCHES["flash_attention"] == n_attn
+    torch.testing.assert_close(flash.logits, got, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama4-scout-17b-16e"])
+def test_moe_routing_on_card_equals_cpu(cuda, arch):
+    """The router's ids equal, its gates within 1e-6, and the dispatch
+    buffers of one routing equal, exactly (stable sort, searchsorted and
+    scatter on the card)."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    cfg = get_config(arch).smoke().replace(dtype="float32")
+    w = init_params(moe.moe_defs(cfg), tr.PRNGKey(0), "float32", "cpu")
+    x = tr.normal(tr.PRNGKey(3), (4, 32, cfg.d_model), "cpu")
+    e_c, g_c, a_c = moe._route(x, w["gate"], cfg)
+    e_g, g_g, a_g = moe._route(x.to(cuda), w["gate"].to(cuda), cfg)
+    assert torch.equal(e_g.cpu(), e_c)
+    torch.testing.assert_close(g_g.cpu(), g_c, rtol=0, atol=1e-6)
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    for cf in (2.0, 0.5):
+        C = max(1, int(32 * k * cf / E))
+        want = moe._dispatch_buffers(e_c, g_c, 32, E, C)
+        got = moe._dispatch_buffers(e_c.to(cuda), g_c.to(cuda), 32, E, C)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
+def test_recurrent_families_decode_on_card(cuda, arch):
+    """Prefill + decode through the states on the card against the card's
+    full forward (1e-4; the hybrid's 5e-4)."""
+    cfg = get_config(arch).smoke().replace(dtype="float32")
+    tol = 5e-4 if cfg.family == "hybrid" else 1e-4
+    m = Model(cfg, cuda)
+    p = m.init_params(tr.PRNGKey(0))
+    toks = tr.randint(tr.PRNGKey(4), (2, 41), 0, cfg.vocab, cuda)
+    full = m.forward(p, {"tokens": toks}).logits
+    _, cache = m.prefill(p, {"tokens": toks[:, :40]}, m.init_cache(2, 41))
+    dec = m.forward(p, {"tokens": toks[:, 40:]}, cache=cache).logits
+    torch.testing.assert_close(dec[:, 0], full[:, -1], rtol=0, atol=tol)

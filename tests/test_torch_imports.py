@@ -43,4 +43,7 @@ def test_scan_sees_the_package():
             "serve_batched.py", "trillion_edge_plan.py",
             "pretrain_finetune_gnn.py", "optimizer.py", "steps.py",
             "trainer.py", "checkpoint.py",
-            "train_lm_on_graph_corpus.py"} <= names
+            "train_lm_on_graph_corpus.py", "moe.py", "ssm.py", "rwkv.py",
+            "encdec.py", "model.py", "qwen3_moe_30b_a3b.py",
+            "llama4_scout_17b_16e.py", "pixtral_12b.py", "zamba2_1_2b.py",
+            "rwkv6_7b.py", "seamless_m4t_medium.py"} <= names

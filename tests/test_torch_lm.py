@@ -243,12 +243,6 @@ def test_prefill_decode_matches_full_forward():
                                rtol=0, atol=1e-4)
 
 
-def test_other_families_are_not_ported():
-    cfg = get_config("tinyllama-1.1b").smoke().replace(family="moe")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A7\(b\)"):
-        Model(cfg, CPU)
-
-
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------

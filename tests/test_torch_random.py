@@ -80,3 +80,29 @@ def test_bits_chunking_is_invisible(monkeypatch):
     whole = tr.bits(tk, (6, 1000))
     monkeypatch.setattr(tr, "_CHUNK", 999)
     torch.testing.assert_close(tr.bits(tk, (6, 1000)), whole, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_range_is_a_slice_of_normal(seed):
+    """A leaf drawn in pieces (``init_params``) equals the whole draw,
+    bit for bit, and pieces cut across rows of any shape."""
+    key = tr.PRNGKey(seed)
+    whole = tr.normal(key, (6, 7, 11))
+    flat = whole.reshape(-1)
+    for lo, hi in ((0, 462), (0, 5), (5, 77), (300, 462)):
+        assert torch.equal(tr.normal_range(key, lo, hi), flat[lo:hi])
+
+
+def test_init_params_pieces_are_invisible(monkeypatch):
+    """A normal leaf drawn in pieces of 7 elements equals one drawn
+    whole, in float32 and cast to bfloat16."""
+    from repro_torch.models import params
+    defs = {"a": params.ParamDef((5, 9, 4), ("embed", "heads", None)),
+            "b": params.ParamDef((3, 33), ("embed", "mlp"), scale=0.5)}
+    for dtype in ("float32", "bfloat16"):
+        whole = params.init_params(defs, tr.PRNGKey(4), dtype, "cpu")
+        monkeypatch.setattr(params, "INIT_CPU_PIECE", 7)
+        cut = params.init_params(defs, tr.PRNGKey(4), dtype, "cpu")
+        monkeypatch.undo()
+        for k in defs:
+            assert torch.equal(cut[k], whole[k]), (k, dtype)
