@@ -8,11 +8,13 @@ resume included).
 
 The JAX example's arguments and steps: fit ``paysim_like`` with Kronecker
 structure, random features and the random aligner, generate from it (on
-the card through the in-register R-MAT kernel), walk it, and train the
-tinyllama-derived model (8 layers, d 512, vocab 4096 by default) with
-``Trainer``: checkpoints every 100 steps under ``--ckpt``, and a rerun
-resumes from the newest one there.  Prints the first-10 and last-10 mean
-losses.
+the card through the in-register R-MAT kernel), walk it, and train a
+model of ``--arch``'s family (tinyllama-1.1b by default; a moe, ssm or
+hybrid config such as ``qwen3-moe-30b-a3b``, ``rwkv6-7b`` or
+``zamba2-1.2b`` trains its own blocks) at the example's width (8 layers,
+d 512, vocab 4096 by default) with ``Trainer``: checkpoints every 100
+steps under ``--ckpt``, and a rerun resumes from the newest one there.
+Prints the first-10 and last-10 mean losses.
 """
 from __future__ import annotations
 

@@ -11,6 +11,10 @@ Decode caches: the decoder's self-attention K/V (written in place, per
 step) and the cross-attention K/V, computed at prefill from the encoder's
 memory (new tensors in the returned cache) and read at decode, where the
 cross scores are computed inline over every cached frame.
+
+Under training (autograd on, no cache, ``cfg.remat``) each encoder and
+decoder block runs under ``transformer.remat_block``, as the reference
+remats its scan bodies.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from repro_torch.models.layers import (attention_defs, cross_entropy,
                                        multihead_attention, rms_norm, swiglu,
                                        swiglu_defs)
 from repro_torch.models.params import ParamDef, TensorSpec, torch_dtype
-from repro_torch.models.transformer import ForwardOut, zeros_cache
+from repro_torch.models.transformer import (ForwardOut, remat_block,
+                                            remat_wanted, zeros_cache)
 
 
 def encdec_defs(cfg) -> Dict[str, Any]:
@@ -72,19 +77,26 @@ def init_encdec_cache(cfg, batch: int, max_dec: int, n_frames: int,
                        device)
 
 
-def encode(params, frames: torch.Tensor, cfg) -> torch.Tensor:
-    """frames: (B, F, d_model) stub embeddings → encoder memory (B, F, D)."""
+def encode(params, frames: torch.Tensor, cfg,
+           remat: bool = False) -> torch.Tensor:
+    """frames: (B, F, d_model) stub embeddings → encoder memory (B, F, D);
+    with ``remat`` each block under ``transformer.remat_block``."""
     x = frames.to(torch_dtype(cfg.dtype)) @ params.p.frame_proj
     B, F_, D = x.shape
     positions = torch.arange(F_, dtype=torch.int32, device=x.device)
     positions = positions[None].expand(B, F_)
     for w in params.views("encoder"):
-        h = rms_norm(x, w.ln1, cfg.norm_eps)
-        x = x + multihead_attention(w.attn, h, cfg=cfg, positions=positions,
-                                    causal=False)
-        h = rms_norm(x, w.ln2, cfg.norm_eps)
-        x = x + swiglu(w.mlp, h)
+        x = (remat_block(_encoder_block, w, x, cfg, positions) if remat
+             else _encoder_block(w, x, cfg, positions))
     return rms_norm(x, params.p.ln_enc, cfg.norm_eps)
+
+
+def _encoder_block(w, x, cfg, positions):
+    h = rms_norm(x, w.ln1, cfg.norm_eps)
+    x = x + multihead_attention(w.attn, h, cfg=cfg, positions=positions,
+                                causal=False)
+    h = rms_norm(x, w.ln2, cfg.norm_eps)
+    return x + swiglu(w.mlp, h)
 
 
 def _decoder_block(w, x, cfg, positions, memory, self_kv=None, cross_kv=None,
@@ -139,12 +151,17 @@ def forward(params, batch, cfg, cache=None) -> ForwardOut:
                                          device=tokens.device)
         positions = positions[None].expand(B, S)
 
+    remat = remat_wanted(params, cfg, cache)
     memory = None
     if batch.get("frames") is not None:
-        memory = encode(params, batch["frames"], cfg)
+        memory = encode(params, batch["frames"], cfg, remat)
 
     xk, xv = [], []
     for i, w in enumerate(params.views("decoder")):
+        if remat:
+            x, _, _ = remat_block(_decoder_block, w, x, cfg, positions,
+                                  memory)
+            continue
         skv = (cache["k"][i], cache["v"][i]) if cache is not None else None
         xkv = (cache["xk"][i], cache["xv"][i]) if cache is not None else None
         x, _, xkv = _decoder_block(w, x, cfg, positions, memory, skv, xkv,

@@ -136,11 +136,17 @@ def moe_ffn_tp(w, x: torch.Tensor, cfg):
     gates = buf_gate.transpose(0, 1)
     acc = x.new_zeros(Gr * (Tg + 1), D)
     xrows = xpad.reshape(Gr * (Tg + 1), D)
+    # one view per expert by a single ``unbind``: its backward stacks the
+    # experts' gradients once, where indexing the stacked leaf per expert
+    # would add a zero-filled (E, D, F) gradient for every expert (a list
+    # of per-expert leaves stays as it is)
+    w1, w3, w2 = (t.unbind(0) if isinstance(t, torch.Tensor) else t
+                  for t in (w.w1, w.w3, w.w2))
     for e in range(E):
         idx = rows[e].reshape(-1)
         xg = xrows[idx]                                        # (G·C, D)
-        h = F.silu(xg @ w.w1[e]) * (xg @ w.w3[e])
-        o = h @ w.w2[e]
+        h = F.silu(xg @ w1[e]) * (xg @ w3[e])
+        o = h @ w2[e]
         o = o * gates[e].reshape(-1, 1).to(o.dtype)
         acc.index_add_(0, idx, o)
     return acc.reshape(Gr, Tg + 1, D)[:, :Tg].reshape(B, S, D), aux

@@ -4,7 +4,7 @@ The chunked matmul formulation: within a chunk of ``Q`` tokens the state
 contribution is a masked (Q×Q) "attention" product, across chunks a small
 recurrent state ``(B, H, P, N)`` is carried by a loop over the chunks.
 All decay exponents are ≤ 0 (A = −exp(A_log), dt ≥ 0), so every ``exp``
-here lies in (0, 1].
+here lies in [0, 1].
 
 Numerics kept from the reference: the projections and the causal conv
 run in the model's dtype, the scan and the states in float32; a ragged
@@ -13,6 +13,12 @@ dA = 0); the conv buffers carry the last ``d_conv − 1`` raw (pre-conv)
 projections, sliced as the reference slices them (a prompt shorter than
 ``d_conv − 1`` leaves a shorter buffer: ROADMAP C13).  ``mamba_reference``
 is the O(S) recurrent oracle the tests hold the chunked form to.
+
+One departure from the reference, on purpose (ROADMAP C17): the
+intra-chunk decays ``exp(cum_i − cum_j)`` are masked to −inf above the
+diagonal *before* the ``exp``.  The reference takes the ``exp`` over the
+whole chunk and masks after it; at a chunk of 128 the upper triangle
+overflows, and its gradient turns non-finite.  The forward is the same.
 """
 from __future__ import annotations
 
@@ -155,8 +161,9 @@ def mamba_block(w, x: torch.Tensor, cfg,
         # intra-chunk
         cb = torch.einsum("bin,bjn->bij", cq, bq)        # (B,Q,Q)
         diff = cum[:, :, None, :] - cum[:, None, :, :]   # (B,Q,Q,H) i,j
-        att = torch.where(mask[None, :, :, None], torch.exp(diff),
-                          torch.zeros((), device=x.device))
+        # −inf above the diagonal before the exp (ROADMAP C17)
+        att = torch.exp(diff.masked_fill(~mask[None, :, :, None],
+                                         float("-inf")))
         att = att * cb[..., None] * dtq[:, None, :, :]   # weight token j
         y = torch.einsum("bijh,bjhp->bihp", att, xq)
         # inter-chunk: the carried state's contribution

@@ -10,12 +10,13 @@ One code path serves training, scoring, prefill and decode:
   returned cache holds both with the new ``pos``.  Prefill is the S > 1
   case with a fresh cache; decode is S == 1.
 * The layers run in a Python loop.  Under autograd with ``cfg.remat``,
-  each block of the attention families runs under
-  ``torch.utils.checkpoint`` (non-reentrant), as the reference's
-  ``jax.remat`` of the scan body: ``remat_policy`` ``"nothing"`` (or
-  ``"none"``) keeps only the block's input, ``"dots"`` also the outputs
-  of the products without batch dims (the weight matmuls), as
-  ``checkpoint_dots_with_no_batch_dims``.
+  each block (attention, RWKV, Mamba, the hybrid's shared attention;
+  encdec's encoder and decoder blocks too) runs under
+  ``torch.utils.checkpoint`` (non-reentrant, ``remat_block``), as the
+  reference's ``jax.remat`` of the scan body: ``remat_policy``
+  ``"nothing"`` (or ``"none"``) keeps only the block's input, ``"dots"``
+  also the outputs of the products without batch dims (the weight
+  matmuls), as ``checkpoint_dots_with_no_batch_dims``.
 
 Block families: ``dense`` (GQA + RoPE + SwiGLU), ``moe`` (GQA + MoE FFN),
 ``ssm`` (RWKV6 blocks), ``hybrid`` (Mamba2 backbone + a weight-shared
@@ -330,25 +331,36 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_block(w, x, cfg, positions):
-    """``dense_block`` under ``torch.utils.checkpoint``: its activations
-    are recomputed in the backward, as ``jax.remat`` recomputes them.
-    → (x, aux)."""
+def remat_wanted(params, cfg, cache) -> bool:
+    """Whether the blocks run under remat: ``cfg.remat``, no cache
+    (training, not scoring or serving), autograd on and a weight that
+    takes a gradient."""
+    return (cfg.remat and cache is None and torch.is_grad_enabled()
+            and any(p.requires_grad for p in params.parameters()))
+
+
+def remat_block(block, w, x, cfg, *args):
+    """``block(w, x, cfg, *args)`` under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward, as
+    ``jax.remat`` of the reference's scan body recomputes them.  The same
+    helper serves every block (dense, MoE, RWKV, Mamba, the hybrid's
+    shared attention, encdec's encoder and decoder); ``remat_policy``
+    ``"dots"`` keeps the weight products (``_dots_policy``).  Returns the
+    block's own outputs."""
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _dots_policy)
-    return ckpt.checkpoint(lambda h: dense_block(w, h, cfg, positions)[:2],
-                           x, use_reentrant=False, **kw)
+    return ckpt.checkpoint(block, w, x, cfg, *args, use_reentrant=False,
+                           **kw)
 
 
 def _run_attn_family(params: LM, x, cfg, positions, cache):
-    remat = (cfg.remat and cache is None and torch.is_grad_enabled()
-             and any(p.requires_grad for p in params.parameters()))
+    remat = remat_wanted(params, cfg, cache)
     aux_total = 0.0
     for i, w in enumerate(params.layers):
         if remat:
-            x, aux = _remat_block(w, x, cfg, positions)
+            x, aux, _ = remat_block(dense_block, w, x, cfg, positions)
         else:
             ckv = (cache["k"][i], cache["v"][i]) if cache is not None \
                 else None
@@ -366,8 +378,12 @@ def _stacked(cache, new: Dict[str, list]) -> Dict[str, Any]:
 
 
 def _run_rwkv(params: LM, x, cfg, cache):
+    remat = remat_wanted(params, cfg, cache)
     new = {"wkv": [], "shift_tm": [], "shift_cm": []}
     for i, w in enumerate(params.layers):
+        if remat:
+            x, _ = remat_block(_rwkv_block, w, x, cfg)
+            continue
         st = (rwkv_mod.RWKVState(cache["wkv"][i], cache["shift_tm"][i],
                                  cache["shift_cm"][i])
               if cache is not None else None)
@@ -390,8 +406,15 @@ def _run_hybrid(params: LM, x, cfg, positions, cache):
     L, ae = cfg.n_layers, cfg.hybrid.attn_every
     layers = params.layers
     pos = cache["pos"] if cache is not None else None
+    remat = remat_wanted(params, cfg, cache)
     new = {k: [] for k in _SSM_KEYS}
     for gi, lo in enumerate(range(0, L, ae)):
+        if remat:
+            x, _ = remat_block(_shared_attn_block, params.p.shared, x, cfg,
+                               positions)
+            for i in range(lo, min(lo + ae, L)):
+                x, _ = remat_block(_mamba_layer, layers[i], x, cfg)
+            continue
         ckv = ((cache["attn_k"][gi], cache["attn_v"][gi])
                if cache is not None else None)
         x, _ = _shared_attn_block(params.p.shared, x, cfg, positions, ckv,

@@ -7,13 +7,14 @@ float32, then the AdamW update (``optimizer.apply_update``).  The step
 runs eagerly and updates ``params`` (an ``LM``) and ``opt_state`` in
 place; the returned ones are the same objects.
 
-With ``cfg.microbatches = M > 1`` the batch splits M ways along its first
-dim; each microbatch's gradients (in the params' dtype, as the reference
-differentiates bf16 params) are cast to float32 and summed, the sum is
-divided by M and the loss averaged.  Gradients come out in the
-reference's tree: one stacked ``(L, ...)`` leaf each with
-``cfg.scan_layers``.  The mesh, ``build_cell`` and the shardings wait for
-the sharding port (ROADMAP A7(c)).
+With ``cfg.microbatches = M > 1`` every batch entry (``tokens``,
+``labels``, and ``patches`` or ``frames`` where the family takes them)
+splits M ways along its first dim; each microbatch's gradients (in the
+params' dtype, as the reference differentiates bf16 params) are cast to
+float32 and summed, the sum is divided by M and the loss averaged.
+Gradients come out in the reference's tree: one stacked ``(L, ...)``
+leaf each with ``cfg.scan_layers``.  The mesh, ``build_cell`` and the
+shardings wait for the sharding port (ROADMAP A7(c)).
 """
 from __future__ import annotations
 
@@ -24,10 +25,13 @@ from repro_torch.models.params import leaves, torch_dtype, tree_map
 from repro_torch.training import optimizer as opt_mod
 
 
-def _on(x, device) -> torch.Tensor:
+def _on(x, device, dtype) -> torch.Tensor:
+    """A batch entry on ``device``: float inputs (the VLM's ``patches``,
+    the encdec's ``frames``) in the params' dtype, as the reference's
+    forward casts them; ``tokens``/``labels`` keep their int dtype."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device)
+    return x.to(device, dtype if x.is_floating_point() else None)
 
 
 def make_train_step(model, hp: opt_mod.OptConfig):
@@ -62,7 +66,7 @@ def make_train_step(model, hp: opt_mod.OptConfig):
         return loss, [g.to(torch.float32) for g in grads]
 
     def full_step(params, opt_state, batch):
-        batch = {k: _on(v, model.device) for k, v in batch.items()}
+        batch = {k: _on(v, model.device, pdt) for k, v in batch.items()}
         loss, flat = train_step(params, batch)
         it = iter(flat)
         grads = tree_map(lambda _: next(it), params.tree())

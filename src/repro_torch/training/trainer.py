@@ -15,6 +15,10 @@ checkpoints and auto-resume.  Failure semantics, as the reference's:
 * on (re)start the trainer restores the newest checkpoint if present, so
   restart-after-kill needs no extra flags.
 
+``fit``'s ``data_it`` yields batch dicts of numpy arrays or tensors, as
+the family's ``Model.loss`` takes them: ``tokens`` and ``labels``, and
+``patches`` (VLM) or ``frames`` (encdec) beside them.
+
 ``history`` holds one ``{"step", "loss", "grad_norm", "dt"}`` per step
 (``dt``: host seconds of the step, which ends on reading the loss).
 """

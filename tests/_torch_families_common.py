@@ -13,8 +13,14 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.models import Model as JModel
 from repro.models.params import init_params as jinit_params
-from repro_torch import convert
+from repro.training import optimizer as jopt
+from repro.training.steps import make_train_step as jmake_train_step
+from repro_torch import convert, utils
 from repro_torch.configs import get_config
+from repro_torch.models import Model
+from repro_torch.models.params import leaves
+from repro_torch.training import optimizer as topt
+from repro_torch.training.steps import make_train_step
 
 CPU = "cpu"
 
@@ -43,6 +49,22 @@ def _one_thread():
         yield
     finally:
         torch.set_num_threads(before)
+
+
+class CountWeightProducts(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the weight products (``mm``, ``bmm`` of batch 1) that run
+    under it: how remat's ``"dots"`` policy is seen to keep them."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        aten = torch.ops.aten
+        if func is aten.mm.default or (func is aten.bmm.default
+                                       and args[0].shape[0] == 1):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
 
 
 def cfgs(arch, dtype="float32", **kw):
@@ -136,3 +158,132 @@ def make_prompts(cfg, lengths, seed):
 #: min(n_groups, T) = 2 groups (ROADMAP C15); 2 gives the hybrid's
 #: one-row conv buffer (C13), written into a slot a longer prompt held
 LENGTHS = (12, 6, 2, 12, 2, 6)
+
+
+# ---------------------------------------------------------------------------
+# training (test_torch_families_train*.py)
+# ---------------------------------------------------------------------------
+
+#: the train tests' optimizer settings (``tests/test_torch_training.py``'s)
+HP = dict(lr=1e-3, warmup_steps=2, total_steps=20)
+
+
+#: the hybrid's gradients and ``grad_norm`` against the reference's: 2e-3
+#: of the leaf's largest gradient (of the norm).  Its float32 gradients
+#: are ill-conditioned at the smoke width: on ``batch_for(cfg, 4, 32, 5)``
+#: the reference's own jitted and op-by-op (``jax.disable_jit``)
+#: gradients differ by up to 7.1e-4 of the leaf's largest (the
+#: embedding's, ~38) and their norms by 7.1e-4; the port's by up to
+#: 6.7e-4 and 6.0e-4.  Every other family: 5e-5 and 1e-6.
+HYBRID_GRAD_REL = 2e-3
+
+
+def grad_tol(cfg, want) -> float:
+    """The absolute limit on a float32 gradient leaf against the
+    reference's ``want``: 5e-5, the hybrid's ``HYBRID_GRAD_REL`` of
+    ``want``'s largest entry."""
+    if cfg.family == "hybrid":
+        return HYBRID_GRAD_REL * float(np.abs(f32(want)).max())
+    return 5e-5
+
+
+def grad_norm_rtol(cfg) -> float:
+    return HYBRID_GRAD_REL if cfg.family == "hybrid" else 1e-6
+
+
+def train_batches(cfg, B=4, S=32, seed=0):
+    """Endless numpy training batches of ``batch_for``'s form (patches or
+    frames where the family takes them), one seed apart."""
+    while True:
+        yield batch_for(cfg, B, S, seed)
+        seed += 1
+
+
+def capture_grads(monkeypatch) -> None:
+    """Both packages' ``make_train_step`` hand on their float32 gradients
+    in the step's metrics, under ``"grads"``: ``apply_update`` is wrapped
+    where the steps call it (``optimizer.apply_update``)."""
+    for mod in (jopt, topt):
+        def wrapped(grads, *args, real=mod.apply_update):
+            params, state, metrics = real(grads, *args)
+            return params, state, {**metrics, "grads": grads}
+        monkeypatch.setattr(mod, "apply_update", wrapped)
+
+
+def step_both(arch, monkeypatch, M=1, seed=5, S=32, **kw):
+    """One train step of each package from the same weights (the
+    reference's float32 ``PRNGKey(0)`` draw) and a fresh optimizer state,
+    on a ``batch_for`` batch of 4 x ``S``: (port cfg, the reference's new
+    state and metrics, the port's params, state and metrics, leaf
+    names)."""
+    capture_grads(monkeypatch)
+    jcfg, cfg = cfgs(arch, microbatches=M, **kw)
+    jp = jparams_f32(arch)
+    jo = jopt.init_opt_state(jp)
+    p = port(jp, cfg)
+    o = convert.opt_state_from_numpy(jax.tree.map(np.asarray, jo), CPU)
+    b = batch_for(cfg, B=4, S=S, seed=seed)
+    jstep = jax.jit(jmake_train_step(JModel(jcfg), jopt.OptConfig(**HP)))
+    _, jo, jmet = jstep(jp, jo, jb(b))
+    p, o, met = make_train_step(Model(cfg, CPU), topt.OptConfig(**HP))(
+        p, o, b)
+    names = [n for n, _ in utils.tree_flatten_with_path(p.tree())]
+    return cfg, (jo, jmet), (p, o, met), names
+
+
+def check_step(cfg, ref, got, names):
+    """``step_both``'s two steps agree: loss within 1e-6 relative;
+    ``grad_norm`` within ``grad_norm_rtol``; every gradient present,
+    finite and within ``grad_tol``; the masters as below."""
+    (jo, jmet), (p, o, met) = ref, got
+    np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(met["grad_norm"]),
+                               float(jmet["grad_norm"]),
+                               rtol=grad_norm_rtol(cfg))
+    want = jax.tree.leaves(jmet["grads"])
+    grads = leaves(met["grads"])
+    assert [tuple(g.shape) for g in grads] == [w.shape for w in want]
+    tols = [grad_tol(cfg, w) for w in want]
+    for name, g, w, tol in zip(names, grads, want, tols):
+        assert bool(g.isfinite().all()), name
+        np.testing.assert_allclose(f32(g), f32(w), rtol=0, atol=tol,
+                                   err_msg=name)
+    # Adam's first update is lr·c·g/(|c·g| + 1e-8), c the clip factor
+    # min(1, max_grad_norm / grad_norm): a gradient error within ``tol``
+    # moves it by under lr·1e-8·tol/(c·g²), which is below 5e-5 where
+    # |g| >= sqrt(lr·1e-8·tol/(5e-5·c)); where the gradient is nearer 0
+    # the update may take either sign, within 2·lr
+    lr = float(jmet["lr"])
+    c = min(1.0, HP.get("max_grad_norm", jopt.OptConfig().max_grad_norm)
+            / float(jmet["grad_norm"]))
+    for name, g, w, gw, tol in zip(names, leaves(o.master),
+                                   jax.tree.leaves(jo.master), want, tols):
+        d = np.abs(f32(g) - f32(w))
+        big = np.abs(f32(gw)) >= max(1e-5, np.sqrt(lr * 1e-8 * tol
+                                                   / (5e-5 * c)))
+        assert d[big].max(initial=0) < 5e-5, name
+        assert d.max() <= 2 * lr, name
+    assert int(o.step) == int(jo.step) == 1
+
+
+def trainers_both(arch, steps=20):
+    """``steps`` ``Trainer`` steps of each package in float32, each drawing
+    its weights from ``PRNGKey(0)`` (the port's normal is within one
+    float32 ulp of jax's), over the same ``train_batches``: (the
+    reference's history, the port's)."""
+    from repro.training.trainer import Trainer as JTrainer
+    from repro.training.trainer import TrainerConfig as JTrainerConfig
+    from repro_torch import random as tr
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    jcfg, cfg = cfgs(arch)
+    jt = JTrainer(JModel(jcfg), jopt.OptConfig(**HP),
+                  JTrainerConfig(total_steps=steps, log_every=1000))
+    jt.fit(jax.random.PRNGKey(0), train_batches(jcfg))
+    t = Trainer(Model(cfg, CPU), topt.OptConfig(**HP),
+                TrainerConfig(total_steps=steps, log_every=1000))
+    t.fit(tr.PRNGKey(0), train_batches(cfg))
+    assert [h["step"] for h in t.history] == list(range(1, steps + 1))
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               and h["grad_norm"] > 0 for h in t.history)
+    return jt.history, t.history

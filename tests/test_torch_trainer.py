@@ -162,6 +162,34 @@ def test_kill_resume_continues_from_checkpoint(tmp_path):
         [h["loss"] for h in t3.history[10:]]
 
 
+def test_family_kill_resume_continues_from_checkpoint(tmp_path):
+    """The same for the hybrid (zamba2 at the smoke width, bf16, float32
+    SSM leaves among bf16 ones): run 2 resumes at step 11 and ends on the
+    uninterrupted run's state, bit for bit."""
+    cfg = get_config("zamba2-1.2b").smoke()
+    hp = opt.OptConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+
+    def run(total, ckdir=None, skip=0):
+        it = data.SyntheticTokens(cfg.vocab, seed=0).batches(4, 32)
+        for _ in range(skip):
+            next(it)
+        t = Trainer(Model(cfg, CPU), hp, TrainerConfig(
+            total_steps=total, ckpt_every=5, log_every=1000,
+            ckpt_dir=None if ckdir is None else str(ckdir)))
+        return t, t.fit(tr.PRNGKey(0), it)
+
+    run(10, tmp_path)
+    t2, (params, opt_state) = run(20, tmp_path, skip=10)
+    assert int(opt_state.step) == 20
+    assert t2.history[0]["step"] == 11
+    t3, want = run(20)
+    for g, w in zip(_state_leaves(params, opt_state), _state_leaves(*want),
+                    strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert [h["loss"] for h in t2.history] == \
+        [h["loss"] for h in t3.history[10:]]
+
+
 # ---------------------------------------------------------------------------
 # checkpoints
 # ---------------------------------------------------------------------------
@@ -241,14 +269,36 @@ def test_checkpoints_cross_packages(tmp_path, dtype):
     """A JAX-written checkpoint restores in the port and a port-written
     one in the JAX package: the same names, arrays and bf16 bits."""
     jm = JModel(_tiny(jget_config, dtype=dtype))
+    _cross_package_round_trip(tmp_path, jm, _port_state(dtype, seed=2))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-1.2b",
+                                  "seamless-m4t-medium"])
+def test_checkpoints_cross_packages_families(tmp_path, arch):
+    """The same for a MoE, the hybrid (float32 leaves in a bf16 tree) and
+    the encdec tree at the smoke width, in bfloat16."""
+    jm = JModel(jget_config(arch).smoke())
+    p = Model(get_config(arch).smoke(), CPU).init_params(tr.PRNGKey(2))
+    o = opt.init_opt_state(p)
+    for x in leaves(o.mu):
+        x.normal_()
+    _cross_package_round_trip(tmp_path, jm, (p, o))
+
+
+def _cross_package_round_trip(tmp_path, jm, port_state):
+    """JAX → port and port → JAX through each package's checkpoints: the
+    JAX package's ``PRNGKey(1)`` state (step 9, moments shifted) restored
+    into ``port_state``'s structure, ``port_state`` restored into the JAX
+    package's, and both manifests naming the same leaves."""
     jp = jm.init_params(jax.random.PRNGKey(1))
     jo = jopt.init_opt_state(jp)._replace(step=jnp.asarray(9, jnp.int32))
     jo = jo._replace(mu=jax.tree.map(lambda x: x + 0.5, jo.mu))
     jckpt.save(str(tmp_path / "jax"), 9, (jp, jo))
-    p, o = _port_state(dtype, seed=2)
+    p, o = port_state
     (p2, o2), step = ckpt.restore(str(tmp_path / "jax"), (p, o))
     assert step == 9 and int(o2.step) == 9
-    for g, w in zip(_state_leaves(p2, o2), jax.tree.leaves((jp, jo))):
+    for g, w in zip(_state_leaves(p2, o2), jax.tree.leaves((jp, jo)),
+                    strict=True):
         w = np.asarray(w)
         assert tuple(g.shape) == w.shape
         if g.dtype == torch.bfloat16:
@@ -260,7 +310,8 @@ def test_checkpoints_cross_packages(tmp_path, dtype):
     ckpt.save(str(tmp_path / "port"), 4, (p, o))
     (jp2, jo2), jstep = jckpt.restore(str(tmp_path / "port"), (jp, jo))
     assert jstep == 4
-    for g, w in zip(jax.tree.leaves((jp2, jo2)), _state_leaves(p, o)):
+    for g, w in zip(jax.tree.leaves((jp2, jo2)), _state_leaves(p, o),
+                    strict=True):
         g = np.asarray(g)
         assert str(g.dtype) == str(w.dtype).split(".")[1]
         if w.dtype == torch.bfloat16:
@@ -417,4 +468,43 @@ def test_train_lm_on_graph_corpus_matches_reference(tmp_path, monkeypatch,
     assert abs(jf - pf) < 1e-2, (jl, pl)
     assert len(out["losses"]) == 4 and np.isfinite(out["losses"]).all()
     # the final checkpoint, resumed by a rerun that has nothing left to do
+    assert ckpt.latest_step(str(tmp_path / "port")) == 4
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "rwkv6-7b"])
+def test_train_lm_on_graph_corpus_other_families(tmp_path, monkeypatch,
+                                                 capsys, arch):
+    """The example's ``--arch`` with a MoE and an RWKV6 config: the same
+    model size and first losses (within 1e-2, as above) as the JAX
+    package's example at the same arguments."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "train_lm_on_graph_corpus.py"
+    spec = importlib.util.spec_from_file_location("jax_train_example", path)
+    jex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jex)
+    args = [*ARGS, "--arch", arch]
+    monkeypatch.setattr(sys, "argv", ["x", *args, "--ckpt",
+                                      str(tmp_path / "jax")])
+    jex.main()
+    want = capsys.readouterr().out
+
+    from repro_torch.examples import train_lm_on_graph_corpus as ex
+    out = ex.main([*args, "--ckpt", str(tmp_path / "port"), "--device",
+                   "cpu"])
+    got = capsys.readouterr().out
+
+    def lines(text, prefix):
+        return [ln for ln in text.splitlines() if ln.startswith(prefix)]
+    assert lines(got, "generated graph") == lines(want, "generated graph")
+    assert lines(got, "model:") == lines(want, "model:")
+    assert arch in lines(got, "model:")[0]
+    assert out["trainer"].model.cfg.family == \
+        get_config(arch).family != "dense"
+    (jl,), (pl,) = lines(want, "loss:"), lines(got, "loss:")
+    jf = float(jl.split("first10=")[1].split()[0])
+    pf = float(pl.split("first10=")[1].split()[0])
+    assert abs(jf - pf) < 1e-2, (jl, pl)
+    assert len(out["losses"]) == 4 and np.isfinite(out["losses"]).all()
     assert ckpt.latest_step(str(tmp_path / "port")) == 4

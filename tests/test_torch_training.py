@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_families_common import CountWeightProducts
 from repro.configs import get_config as jget_config
 from repro.configs.base import ShapeSpec as JShapeSpec
 from repro.models import Model as JModel
@@ -237,21 +238,6 @@ def _grads(m, p, b):
     return loss, torch.autograd.grad(loss, ws)
 
 
-class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
-    """Counts the weight products (``mm``, ``bmm`` of batch 1)."""
-
-    def __init__(self):
-        super().__init__()
-        self.n = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        aten = torch.ops.aten
-        if func is aten.mm.default or (func is aten.bmm.default
-                                       and args[0].shape[0] == 1):
-            self.n += 1
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("policy", ["nothing", "dots"])
 def test_remat_matches_no_remat(policy, monkeypatch):
     cfg = _tiny(get_config, dtype="float32", remat_policy=policy)
@@ -264,7 +250,7 @@ def test_remat_matches_no_remat(policy, monkeypatch):
         block = transformer.dense_block
         monkeypatch.setattr(transformer, "dense_block",
                             lambda *a, **k: calls.append(1) or block(*a, **k))
-        counter = _CountOps()
+        counter = CountWeightProducts()
         ws = leaves(p.tree())
         for w in ws:
             w.requires_grad_(True)
