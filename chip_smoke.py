@@ -10,8 +10,9 @@ disk (phase 13) and across worker processes (phase 17), scoring what it
 generates (phase 14), the paper's baselines (phase 15), the paper's
 benchmark tables (phase 16), the dense
 LM's scoring forward and serving engine (phases 8-10), training it
-(phase 18), the other LM families (phase 19), training them (phase 20)
-and the toolchain probes S1-S4 (phase 12):
+(phase 18), the other LM families (phase 19), training them (phase 20),
+the production mesh planned without a card (phase 21) and the toolchain
+probes S1-S4 (phase 12):
 
 1. build the kernels; print the card's name and power limit; read the
    built SASS: the in-register R-MAT kernel's level loop, and the
@@ -190,8 +191,9 @@ and the toolchain probes S1-S4 (phase 12):
 16. benchmarks (run after phase 13): the tables of
     ``python -m repro_torch.benchmarks.run`` at their fast sizes, each
     through the runner's ``run_table``, but Table 2, 5 and 6
-    (``BENCH_SKIP``: phases 4, 14 and 15 drive their paths) and
-    ``cluster_scaling`` (phase 17(f) runs it); every
+    (``BENCH_SKIP``: phases 4, 14 and 15 drive their paths),
+    ``cluster_scaling`` (phase 17(f) runs it) and ``roofline`` (phase 21
+    makes its tables from its own dry-run cells); every
     table's row names (``BENCH_ROWS``) or result keys (``BENCH_KEYS``) and
     finite numbers; Fig. 8 times ``reference``, ``cuda_bits`` (K1) and
     ``cuda_prng`` (K2), each at most its H100 bound, and their ids for
@@ -285,6 +287,34 @@ and the toolchain probes S1-S4 (phase 12):
     be sure of it (``_adam_sure``), within 2·(lr_1 + lr_2) elsewhere; the
     hybrid's ``FAMILY_TRAIN_CPU_TOL``.  The wall is logged beside
     ``FAMILY_TRAIN_BUDGET_S``.
+21. the production mesh (run after phase 20, ``phase_plan``): (a)
+    ``python -m repro_torch.launch.dryrun`` for every architecture at
+    ``train_4k`` on the (16, 16) production mesh (its probe runs over
+    ``PLAN_JOBS`` processes) and the graph-generation cell, on the host
+    (a placeholder process group of 512 ranks, ``meta`` tensors, no
+    card; ``PlanHost``: started before phase 18 at the lowest CPU
+    priority, on the cores phases 18-20 leave idle, collected after
+    (c)-(e) ran on the card): every cell ``ok`` or
+    ``skipped``, each cell's peak bytes a device logged beside 80 GB
+    (llama4-scout's ``fsdp`` cell among them) with its roofline terms,
+    and ``benchmarks/roofline``'s two tables of the cells; (b) the
+    memory model against the card: phase 18's step (tinyllama-1.1b, B =
+    8 × S = 2048) probed on
+    a 1 × 1 placeholder mesh, its predicted peak (plus phase 18's
+    first-step weight copy) within ``PLAN_CALIB_TOL`` of phase 18's
+    measured ``max_memory_allocated``, its counted FLOPs over phase 18's
+    step time logged as a model-FLOPs share; (c) the mesh-aware step on a
+    1 × 1 mesh of ``cuda:0`` (DTensor weights, full-width tinyllama-1.1b,
+    2 steps) against the plain step from the same weights and batches:
+    losses and masters within ``PLAN_STEP_TOL`` relative, bit-equality
+    logged (masters held where Adam's first update is sure of its
+    gradient, as phase 20 holds them); (d) ``compress_tree`` on the card
+    = the CPU, bit for bit;
+    (e) the generation cell on one device of the card: K2 for 2^24
+    edges, its edges/s beside the cell's ``edges_per_s_roofline``, K2
+    against its plain version at that shape.  The wall is logged beside
+    ``PLAN_BUDGET_S``; K2's row carries ``plan_path_launches`` and
+    ``plan_path_max_abs_err``.
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
 ``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
@@ -302,6 +332,7 @@ checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import subprocess
@@ -2449,11 +2480,12 @@ def phase_scaleout(path64: str, stream: dict, tr, rs, torch) -> dict:
 
 
 #: phase 16 runs the runner's tables at their fast sizes, but these
-#: four: phases 4, 14 and 15 drive their paths through library calls, and
+#: five: phases 4, 14 and 15 drive their paths through library calls, and
 #: each of their GAN fits takes ~10 s; phase 17(f) runs
-#: ``cluster_scaling``
+#: ``cluster_scaling``; phase 21 makes ``roofline``'s tables from its own
+#: dry-run cells
 BENCH_SKIP = ("table2_quality", "table5_scale_metrics", "table6_ablation",
-              "cluster_scaling")
+              "cluster_scaling", "roofline")
 #: phase 16's wall, seconds
 BENCH_BUDGET_S = 60.0
 #: the row names of the tables that return rows, at fast sizes
@@ -3658,7 +3690,8 @@ TRAIN_FAMILIES = (
 #: phase 20(a): the family left out on the card, and why
 TRAIN_NOT_ON_CARD = (
     ("llama4-scout-17b-16e", "not on one card: ~83 GB of training state at "
-     "one layer; waits for ZeRO sharding (A7(c2))"),)
+     "one layer; sharding it needs more than one card (phase 21's "
+     "dry-run plans its fsdp cell)"),)
 #: phase 20(a): the batch (B x S positions: the VLM 256 patches + 1792
 #: text tokens, the encdec 1024 frames + 1024 tokens) and the steps
 FAMILY_TRAIN_B, FAMILY_TRAIN_S, FAMILY_TRAIN_STEPS = 8, 2048, 3
@@ -3932,6 +3965,349 @@ def phase_family_training(g, fa, tr, get_config, Model, torch) -> dict:
     walls["b"] = time.time() - t0
     out.update(walls=walls, wall=time.time() - t_phase)
     return out
+
+
+#: phase 21: its wall is logged beside this budget
+PLAN_BUDGET_S = 120.0
+#: phase 21(a): the cells the dry-run writes (every arch at train_4k on the
+#: single production mesh, the graph-generation cell), their probe runs
+#: over this many processes (the card's machine has 8 cores)
+PLAN_SHAPE, PLAN_JOBS = "train_4k", 8
+#: phase 21(b): predicted against measured peak memory, at most this apart
+PLAN_CALIB_TOL = 0.15
+#: phase 21(c): the 1 × 1-mesh step against the plain step, relative
+PLAN_STEP_TOL = 1e-6
+#: phase 21(e): edges a device of the generation cell
+PLAN_GEN_EDGES = 1 << 24
+#: phase 21(b): the probe of phase 18's step on a 1 × 1 placeholder mesh,
+#: its memory and FLOPs as JSON (argv: arch, batch, sequence)
+PLAN_CALIB_SCRIPT = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import costs, dryrun, mesh
+from repro_torch.training.steps import build_cell
+mesh.fake_process_group(1)
+m = mesh.make_local_mesh(1, 1)
+cfg = get_config(sys.argv[1])
+shape = ShapeSpec("phase18", int(sys.argv[3]), int(sys.argv[2]), "train")
+p = costs.probe_costs(cfg, shape, m)
+cell = build_cell(cfg, shape, m, device="meta")
+print(json.dumps({"memory": dryrun.memory_analysis(cell, cfg, shape,
+                                                   p.temp_bytes),
+                  "flops": p.flops, "model_flops":
+                  costs.model_flops(cfg, shape)}))
+"""
+
+
+class PlanHost:
+    """Phase 21(a)'s and (b)'s host processes (no card: the dry-run is
+    host work on ``meta`` tensors), started before phase 18 at the lowest
+    CPU priority, so that they take the cores the card's phases leave
+    idle; ``close`` stops any still running and removes their work."""
+
+    def __init__(self):
+        import os
+        import tempfile
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        cmds = {"cells": ["-m", "repro_torch.launch.dryrun", "--all",
+                          "--shape", PLAN_SHAPE, "--jobs", str(PLAN_JOBS),
+                          "--out", self.work],
+                "graphgen": ["-m", "repro_torch.launch.dryrun",
+                             "--graphgen", "--out", self.work],
+                "calibration": ["-c", PLAN_CALIB_SCRIPT, LM_ARCH,
+                                str(TRAIN_B), str(TRAIN_S)]}
+        self.t0 = time.time()
+        self.procs = {}
+        for name, args in cmds.items():
+            path = os.path.join(self.work, f"{name}.log")
+            with open(path, "w") as f:
+                p = subprocess.Popen([sys.executable] + args, stdout=f,
+                                     stderr=subprocess.STDOUT, cwd=str(ROOT),
+                                     env=env)
+            os.setpriority(os.PRIO_PROCESS, p.pid, 19)
+            self.procs[name] = (p, path)
+
+    def wait(self) -> float:
+        """Wait for every process (each must exit 0); the seconds from
+        their start to the last one's end."""
+        for name, (p, path) in self.procs.items():
+            rc = p.wait(timeout=PLAN_BUDGET_S * 4)
+            if rc != 0:
+                log(open(path).read()[-3000:])
+            check(rc == 0, f"21: the {name} process exited {rc}")
+        return time.time() - self.t0
+
+    def close(self) -> None:
+        import shutil
+        for p, _ in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def _plan_step(g, get_config, Model, tr, torch) -> dict:
+    """21(c): two steps of full-width tinyllama-1.1b on DTensor weights on
+    a 1 × 1 mesh of ``cuda:0`` against the plain step from the same
+    weights and batches."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import GraphWalkCorpus
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.params import leaves
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import steps
+    cfg = get_config(LM_ARCH).replace(attn_impl="einsum", remat=True,
+                                      remat_policy="nothing")
+    hp = opt.OptConfig(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    it = GraphWalkCorpus(g, vocab=cfg.vocab).batches(TRAIN_B, TRAIN_S)
+    batches = [next(it) for _ in range(2)]
+    model = Model(cfg, "cuda")
+    runs = []
+    for mesh in (None, "1x1"):
+        params = model.init_params(tr.PRNGKey(0))
+        state = opt.init_opt_state(params)
+        if mesh is not None:
+            mesh = make_local_mesh(1, 1, device_type="cuda")
+            rules = shd.make_rules(cfg, mesh)
+            state = steps.place(state, steps.opt_state_shardings(
+                opt.abstract_opt_state(model.abstract_params()),
+                model.param_dims(), rules, mesh))
+            params = steps.place(params, shd.tree_shardings(
+                model.param_dims(), model.abstract_params(), rules, mesh))
+            placed = type(leaves(params.tree())[0]).__name__
+        step = steps.make_train_step(model, hp, mesh)
+        losses, lrs = [], []
+        t0 = time.time()
+        for b in batches:
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            lrs.append(float(m["lr"]))
+            if mesh is None and len(losses) == 1:
+                # the first moment after step 1 is (1 − β1)·clipped g₁
+                g1 = [t.cpu() / (1 - hp.beta1) for t in leaves(state.mu)]
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        masters = [(t.full_tensor() if mesh is not None else t).cpu()
+                   for t in leaves(state.master)]
+        runs.append((losses, masters, dt))
+        del params, state, step
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    (l0, m0, t_plain), (l1, m1, t_mesh) = runs
+    dl = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    # masters to PLAN_STEP_TOL of each leaf's largest where Adam's first
+    # update is sure of its gradient (|g₁| ≥ 1e-5, or 0), to 2·(lr₁ +
+    # lr₂) elsewhere: lr·g/(|g| + 1e-8) turns a last-bit gradient
+    # difference near 1e-8 into a part of lr (phase 20's _adam_sure)
+    dm = dm_all = 0.0
+    unsure = 0
+    for a, b, g in zip(m0, m1, g1):
+        sure = (g.abs() >= 1e-5) | (g == 0)
+        d = (a - b).abs()
+        scale = max(float(a.abs().max()), 1e-30)
+        dm = max(dm, float(d[sure].max()) / scale if sure.any() else 0.0)
+        dm_all = max(dm_all, float(d.max()))
+        unsure += int((~sure).sum())
+    same = l0 == l1 and all(torch.equal(a, b) for a, b in zip(m0, m1))
+    log(f"plan (c): {LM_ARCH} full width, 2 steps at B={TRAIN_B} x "
+        f"S={TRAIN_S}, the weights {placed}s on a 1 x 1 mesh of cuda:0 "
+        f"against the plain step from the same weights and batches: losses "
+        f"{l1} vs {l0}, max relative loss diff {dl:.3g}; masters: max "
+        f"relative diff {dm:.3g} where Adam is sure (tol {PLAN_STEP_TOL}), "
+        f"max |diff| {dm_all:.3g} anywhere (bound {2 * sum(lrs):.3g}, "
+        f"{unsure} entries with 0 < |g1| < 1e-5); bit-equal {same}; 2 "
+        f"steps {t_mesh:.2f} s on the mesh, {t_plain:.2f} s plain")
+    check(placed == "DTensor", "21(c): the weights are not DTensors")
+    check(dl <= PLAN_STEP_TOL and dm <= PLAN_STEP_TOL
+          and dm_all <= 2 * sum(lrs),
+          "21(c): the 1 x 1-mesh step leaves the plain step")
+    return {"losses_plain": l0, "losses_mesh": l1, "max_loss_rel": dl,
+            "max_master_rel_sure": dm, "max_master_abs": dm_all,
+            "unsure_entries": unsure, "bit_equal": same,
+            "two_steps_s_mesh": t_mesh, "two_steps_s_plain": t_plain}
+
+
+def _plan_compression(torch) -> dict:
+    """21(d): ``compress_tree`` on the card against the CPU on the same
+    seeded gradients, with a carried error buffer: bit for bit."""
+    import numpy as np
+    from repro_torch.distributed import compression as comp
+    r = np.random.default_rng(21)
+    rounds = [{"w": r.normal(0, 1, (4096, 1024)).astype(np.float32),
+               "b": r.normal(0, 1e-3, (4096,)).astype(np.float32),
+               "e": r.normal(0, 30, (64, 64, 64)).astype(np.float32)}
+              for _ in range(2)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g0 = {k: torch.from_numpy(v).to(dev) for k, v in rounds[0].items()}
+        e = comp.init_error_buffer(g0)
+        got = []
+        for g in rounds:
+            q, s, e = comp.compress_tree({k: torch.from_numpy(v).to(dev)
+                                          for k, v in g.items()}, e)
+            got.append([t.cpu() for part in (q, s, e)
+                        for t in (part[k] for k in sorted(part))])
+        out[dev] = got
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for ra, rb in zip(out["cpu"], out["cuda"])
+               for a, b in zip(ra, rb))
+    n = sum(v.size for v in rounds[0].values())
+    log(f"plan (d): compress_tree, 2 rounds with error feedback on "
+        f"{n} float32 gradient entries in 3 leaves: int8 values, scales "
+        f"and residuals card = CPU bit for bit: {same}")
+    check(same, "21(d): the card's int8 compression differs from the CPU's")
+    return {"entries": n, "bit_equal": same}
+
+
+def _plan_generation(tr, ref, rs, torch) -> tuple:
+    """21(e): the generation cell on a one-device mesh of the card (K2
+    for ``PLAN_GEN_EDGES`` edges at n = m = 30), its edges/s beside its
+    roofline; K2 at that shape against its plain version."""
+    import numpy as np
+    from repro_torch.core import sampler
+    from repro_torch.core.distributed_gen import (build_generation_cell,
+                                                  step_seeds)
+    cell = build_generation_cell(1, "1t", PLAN_GEN_EDGES, devices=["cuda"])
+    L = cell.args[0].shape[0]
+    thetas = torch.tensor([DEMO_THETA] * L, dtype=torch.float32,
+                          device="cuda")
+    seeds = step_seeds(0, 0, 1)
+    torch.cuda.synchronize()
+    rs.reset_launches()
+    src, dst = cell.fn(thetas, seeds)
+    torch.cuda.synchronize()
+    launches = rs.LAUNCHES["rmat_sample_prng"]
+    check(launches > 0, "21(e): the generation cell never ran K2")
+    check(src.shape == (1, PLAN_GEN_EDGES) and int(src.min()) >= 0
+          and int(dst.min()) >= 0, "21(e): ids out of range")
+    ms = min(cuda_ms(lambda: cell.fn(thetas, seeds), 3) for _ in range(2))
+    comp, mem = cell.costs["operations_s"], cell.costs["bytes_s"]
+    roof = cell.meta["edges"] / max(comp, mem)
+    eps = cell.meta["edges"] / (ms / 1e3)
+    key = tr.fold_in(tr.PRNGKey(0), int(seeds[0]))
+    pad = sampler._pad_edges(PLAN_GEN_EDGES,
+                             sampler.choose_block(PLAN_GEN_EDGES))
+    err = max_word_err(rs.rmat_sample_prng(key, thetas, L, L,
+                                           PLAN_GEN_EDGES, pad),
+                       ref.rmat_prng_ref(key, thetas, L, L, PLAN_GEN_EDGES,
+                                         pad))
+    check(err == 0, f"21(e): K2 at the cell's shape differs from its plain "
+          f"version ({err})")
+    log(f"plan (e): the generation cell on one device (n=m={L}, "
+        f"{PLAN_GEN_EDGES} edges, K2 {launches} launch(es)): {ms:.3f} ms a "
+        f"step, {eps:.4g} edges/s beside its roofline "
+        f"{roof:.4g} edges/s ({eps / roof:.1%}; operations "
+        f"{comp * 1e3:.3f} ms, bytes {mem * 1e3:.3f} ms); K2 vs plain at "
+        f"that shape max|err| {err}")
+    return ({"edges": cell.meta["edges"], "step_ms": ms,
+             "edges_per_s": eps, "edges_per_s_roofline": roof,
+             "share": eps / roof}, launches, err)
+
+
+def phase_plan(host: PlanHost, g, train: dict, tr, ref, rs, get_config,
+               Model, torch) -> tuple:
+    """Phase 21: the production mesh planned without a card, and the
+    mesh-aware pieces on it.  (a) the dry-run of every architecture at
+    ``PLAN_SHAPE`` on the single production mesh (its probe runs over
+    ``PLAN_JOBS`` processes) and the graph-generation cell, ``host``'s
+    processes, started before phase 18; (b) the memory model against
+    phase 18's measured peak; (c) the 1 × 1-mesh train step; (d) int8
+    compression card = CPU; (e) the generation cell through K2.  Returns
+    the phase's numbers, K2's launches and its max error."""
+    import json as _json
+    import os
+    t_phase = time.time()
+    card = gpu_line()
+    work, procs = host.work, host.procs
+    out = {"card": card}
+    t0 = time.time()
+    out["c"] = _plan_step(g, get_config, Model, tr, torch)
+    out["d"] = _plan_compression(torch)
+    out["e"], k2, err = _plan_generation(tr, ref, rs, torch)
+    t_card = time.time() - t0
+    t_host = host.wait()
+    # (a)
+    cells = {}
+    for fname in sorted(os.listdir(work)):
+        if fname.endswith(".json"):
+            with open(os.path.join(work, fname)) as f:
+                cells[fname[:-5]] = _json.load(f)
+    lines = []
+    for name, c in cells.items():
+        check(c["status"] in ("ok", "skipped"),
+              f"21(a): {name} is {c['status']}: {c.get('error')}")
+        if c["status"] == "skipped":
+            lines.append(f"{name}: skipped ({c['reason']})")
+            continue
+        rl = c["roofline"]
+        if c.get("arch") == "graphgen-rmat":
+            lines.append(
+                f"{name}: {rl['edges']:.4g} edges a step, roofline "
+                f"{rl['edges_per_s_roofline']:.4g} edges/s "
+                f"({rl['dominant']}), no collective")
+            continue
+        peak = c["memory_analysis"]["peak_bytes_per_device"]
+        lines.append(
+            f"{name}: peak {peak / 2**30:.2f} GiB a device of 80 GB "
+            f"({peak / 80e9:.0%}); compute {rl['compute_s']:.4g} s, "
+            f"memory {rl['memory_s']:.4g} s, collective "
+            f"{rl['collective_s']:.4g} s, dominant {rl['dominant']}, "
+            f"useful {rl['useful_ratio']:.3f}; probe "
+            f"{c['t_probe_s']} s" + (" (fsdp)" if c["config"]["fsdp"]
+                                      else ""))
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs import ARCHS
+    check(len(cells) == len(ARCHS) + 1, f"21(a): {len(cells)} cells")
+    log("plan (a): the dry-run on the (16, 16) production mesh "
+        "(a placeholder group of 512 ranks, meta tensors, no card), "
+        "H100 constants:\n  " + "\n  ".join(lines))
+    # the 15th table, from these cells
+    tables = (roofline.dryrun_table(list(cells.values())) + "\n\n"
+              + roofline.roofline_table(list(cells.values())))
+    check(all(f"| {a} | {PLAN_SHAPE} |" in tables for a in ARCHS),
+          "21(a): the roofline tables miss a cell")
+    log("plan (a): benchmarks/roofline's tables of these cells:\n"
+        + tables)
+    out["a"] = {n: {k: c.get(k) for k in ("status", "memory_analysis",
+                                           "roofline", "t_probe_s")}
+                for n, c in cells.items()}
+    # (b)
+    with open(procs["calibration"][1]) as f:
+        calib = _json.loads(f.read().strip().splitlines()[-1])
+    ta = train["a"]
+    held = ta["params"] * 2      # watch_first_step's bf16 clone
+    predicted = calib["memory"]["peak_bytes_per_device"] + held
+    measured = ta["peak_mem_GB"] * 1e9
+    gap = predicted / measured - 1
+    share = calib["flops"] / (ta["step_ms_median_2_on"] / 1e3) / \
+        PEAK_FLOPS["bfloat16"]
+    log(f"plan (b): {LM_ARCH} at B={TRAIN_B} x S={TRAIN_S} on a 1 x 1 "
+        f"mesh: predicted peak {predicted / 1e9:.2f} GB (step "
+        f"{calib['memory']['peak_bytes_per_device'] / 1e9:.2f} GB: "
+        f"arguments {calib['memory']['argument_bytes'] / 1e9:.2f} + temp "
+        f"{calib['memory']['temp_bytes'] / 1e9:.2f}; + phase 18's "
+        f"first-step weight copy {held / 1e9:.2f}) against phase 18's "
+        f"measured {measured / 1e9:.2f} GB: {gap:+.1%} (tol "
+        f"{PLAN_CALIB_TOL:.0%}); counted FLOPs {calib['flops']:.4g} over "
+        f"phase 18's step {ta['step_ms_median_2_on']:.1f} ms: "
+        f"model-FLOPs share {share:.4f} (phase 18's 8·N·tokens: "
+        f"{ta['model_flops_share']:.4f}); card {card}")
+    check(abs(gap) <= PLAN_CALIB_TOL, "21(b): the memory model leaves "
+          "the measured peak")
+    out["b"] = {"predicted_GB": predicted / 1e9,
+                "measured_GB": measured / 1e9, "gap": gap,
+                "counted_flops": calib["flops"],
+                "counted_flops_share": share,
+                "phase18_share": ta["model_flops_share"]}
+    out.update(wall=time.time() - t_phase, card_s=t_card,
+               host_s_from_start=t_host)
+    log(f"plan: the host processes ended {t_host:.1f}s after their start "
+        "before phase 18 (lowest CPU priority)")
+    return out, k2, err
 
 
 def flash_d128_timing(fa, torch) -> dict:
@@ -4368,6 +4744,11 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     clock("9-10")
+    # phase 21's host work (the dry-run) from here on, at the lowest CPU
+    # priority, on the cores phases 18-20 leave idle; stopped and removed
+    # at exit, whatever happens
+    plan_host = PlanHost()
+    atexit.register(plan_host.close)
     train, train_k2, e_train, corpus_graph = phase_training(
         convert, tr, rmat, sampler, ref, rs, fa, get_config, Model, torch)
     errs["rmat_sample_prng"] = max(errs["rmat_sample_prng"], e_train)
@@ -4382,10 +4763,16 @@ def main() -> int:
     clock("19")
     fam_train = phase_family_training(corpus_graph, fa, tr, get_config,
                                       Model, torch)
-    del corpus_graph
     log(f"family training: phase 20 wall {fam_train['wall']:.1f}s of its "
         f"{FAMILY_TRAIN_BUDGET_S:.0f}s budget; " + json.dumps(fam_train))
     clock("20")
+    plan, plan_k2, e_plan = phase_plan(plan_host, corpus_graph, train, tr,
+                                       ref, rs, get_config, Model, torch)
+    del corpus_graph
+    errs["rmat_sample_prng"] = max(errs["rmat_sample_prng"], e_plan)
+    log(f"plan: phase 21 wall {plan['wall']:.1f}s of its "
+        f"{PLAN_BUDGET_S:.0f}s budget; " + json.dumps(plan))
+    clock("21")
     rows = phase_timing(tr, ref, rs, torch, errs, launches, largest)
     if sass:
         rows[-1]["sass_level_loop"] = sass
@@ -4402,7 +4789,9 @@ def main() -> int:
                     scaleout_path_launches=scale["launches"],
                     scaleout_examples_launches=scale["e"]["k2"],
                     train_path_launches=train_k2,
-                    train_path_max_abs_err=e_train)
+                    train_path_max_abs_err=e_train,
+                    plan_path_launches=plan_k2,
+                    plan_path_max_abs_err=e_plan)
     for row in rows:
         if row["name"] in bench["launches"]:
             row.update(bench_path_launches=bench["launches"][row["name"]],

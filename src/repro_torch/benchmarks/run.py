@@ -9,8 +9,9 @@ under ``results/bench_torch/``).  The tables run on the card
 unless ``--device cpu`` is given.  It exits non-zero if any table fails.
 
 ``cluster_scaling`` spawns the generator's CLI (serial, then a 2-worker
-cluster).  ``benchmarks/run.py``'s ``roofline`` (it reads the TPU dry-run
-of ``launch/``, ROADMAP A7) has no counterpart yet.
+cluster).  ``roofline`` reads the port's dry-run JSONs
+(``python -m repro_torch.launch.dryrun --all --mesh both`` first; it
+needs no card).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ TABLES = [
     "table10_structural_stats",
     "fig8_throughput",
     "gnn_throughput",
+    "roofline",
     "datastream_throughput",
     "feature_throughput",
     "executor_overlap",

@@ -5,8 +5,9 @@ Every architecture the port runs gets one module in ``repro_torch.configs``
 exporting a ``CONFIG: ModelConfig``.  ``ModelConfig`` is a frozen dataclass
 so configs are hashable and safely shareable.  The copy keeps every field
 and sub-config of the reference, so that every config parses.  The fields
-that steer JAX's sharding (``fsdp``, ``dp2d``, ``seq_shard``,
-``moe_path``) have no effect in the port; ``scan_layers`` shapes the
+that steer the sharding (``fsdp``, ``dp2d``, ``seq_shard``,
+``moe_path``) act under a mesh (``distributed.sharding.make_rules``, the
+MoE's ``ep`` path) and do nothing without one; ``scan_layers`` shapes the
 parameter tree as in the reference (stacked or a list of layers), and the
 port runs both through one loop.  ``remat`` and ``remat_policy`` act under
 autograd: each block then runs under ``torch.utils.checkpoint``

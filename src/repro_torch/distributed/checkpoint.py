@@ -17,8 +17,14 @@ other wrote.
 
 ``restore`` reads into the structure of a tree like the one saved: each
 tensor leaf comes back on that leaf's device, an ``LM`` as a new one
-of the same config, a numpy leaf as numpy.  The reference's elastic
-restore onto another mesh waits for the sharding port (ROADMAP A7(c)).
+of the same config, a numpy leaf as numpy.  With ``shardings`` (a tree of
+``sharding.NamedSharding`` of the same structure) each leaf comes back a
+DTensor laid out on that sharding's mesh, whatever mesh saved it: the
+elastic restore.
+
+Under several processes a DTensor leaf is saved whole: every rank
+gathers it (``full_tensor``, a collective), rank 0 writes, and the ranks
+meet at a barrier before ``save`` returns.
 """
 from __future__ import annotations
 
@@ -35,7 +41,11 @@ from repro_torch.utils import tree_flatten_with_path
 
 
 def _host(leaf) -> tuple:
-    """A leaf as (numpy array owning its memory, dtype name)."""
+    """A leaf as (numpy array owning its memory, dtype name); a DTensor
+    gathered whole."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -77,9 +87,22 @@ def _write(ckpt_dir: str, step: int, snap: list, keep: int) -> str:
     return final
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def save(ckpt_dir: str, step: int, tree, keep: int = 3) -> str:
-    """Synchronous atomic save.  Returns the final directory path."""
-    return _write(ckpt_dir, step, _snapshot(tree), keep)
+    """Synchronous atomic save.  Returns the final directory path.  Under
+    a process group, rank 0 writes and every rank waits for it."""
+    import torch.distributed as dist
+    snap = _snapshot(tree)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _rank() == 0:
+        final = _write(ckpt_dir, step, snap, keep)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
 
 
 class AsyncCheckpointer:
@@ -94,6 +117,8 @@ class AsyncCheckpointer:
     def save_async(self, step: int, tree):
         self.wait()
         snap = _snapshot(tree)
+        if _rank() != 0:     # rank 0 writes for every rank
+            return
 
         def work():
             try:
@@ -149,8 +174,11 @@ def _unflatten(like, it):
     return next(it)
 
 
-def restore(ckpt_dir: str, tree_like, step: Optional[int] = None):
-    """Restore into the structure of ``tree_like``.  → (tree, step)."""
+def restore(ckpt_dir: str, tree_like, step: Optional[int] = None,
+            shardings=None):
+    """Restore into the structure of ``tree_like``.  → (tree, step).
+    ``shardings``: a ``NamedSharding`` tree of the same structure, onto
+    whose meshes the leaves are laid out (elastic re-sharding)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -162,12 +190,23 @@ def restore(ckpt_dir: str, tree_like, step: Optional[int] = None):
     if len(leaves) != len(manifest["leaves"]):
         raise ValueError(f"{d} holds {len(manifest['leaves'])} leaves, the "
                          f"tree {len(leaves)}")
+    sh = None
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute
+        from repro_torch.training.steps import _spec_leaves
+        sh = _spec_leaves(shardings)
+        if len(sh) != len(leaves):
+            raise ValueError(f"{len(sh)} shardings for {len(leaves)} leaves")
     out = []
-    for (name, like), meta in zip(leaves, manifest["leaves"]):
+    for i, ((name, like), meta) in enumerate(zip(leaves,
+                                                 manifest["leaves"])):
         if list(meta["shape"]) != list(like.shape):
             raise ValueError(f"{name}: {meta['shape']} in {d}, "
                              f"{list(like.shape)} in the tree")
-        out.append(_load(os.path.join(d, meta["file"]), meta["dtype"], like))
+        t = _load(os.path.join(d, meta["file"]), meta["dtype"], like)
+        if sh is not None:
+            t = distribute(torch.as_tensor(t), sh[i])
+        out.append(t)
     return _unflatten(tree_like, iter(out)), step
 
 

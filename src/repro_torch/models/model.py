@@ -6,11 +6,13 @@
   (the JAX package's weights for the same key) as an ``LM`` module;
 * ``abstract_params / param_dims``: each leaf's ``TensorSpec`` (shape and
   dtype) and logical dims, without drawing it;
-* ``loss(params, batch)``: the training objective (``training.steps``
-  differentiates it);
-* ``forward(params, batch, cache=None)``;
-* ``prefill(params, batch, cache)``: context ingest, writes the cache;
-* ``decode_step(params, batch, cache)``: one token, updates the cache;
+* ``loss(params, batch, mesh=None)``: the training objective
+  (``training.steps`` differentiates it);
+* ``forward(params, batch, cache=None, mesh=None)``;
+* ``prefill(params, batch, cache, mesh=None)``: context ingest, writes
+  the cache;
+* ``decode_step(params, batch, cache, mesh=None)``: one token, updates
+  the cache;
 * ``cache_abstract(batch, seq)`` / ``init_cache(batch, seq)`` /
   ``cache_dims()``;
 * ``input_specs(shape)`` / ``batch_dims(batch)``: the ``TensorSpec`` of
@@ -25,7 +27,10 @@ Shape semantics of the special families, as in the reference:
   ``seq_len − n_patches`` tokens, so the whole context matches the cell.
 
 Everything runs on ``device`` (``"cuda"`` unless the caller asks for the
-CPU).  An unknown family raises ``ValueError`` where it is first used.
+CPU).  With ``mesh`` (a ``DeviceMesh``) the weights, batch and cache are
+DTensors on it, laid out by ``training.steps.build_cell``, and each step
+runs under ``distributed.sharding.mesh_scope``.  An unknown family
+raises ``ValueError`` where it is first used.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.distributed.sharding import mesh_scope, unsplit
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.params import (TensorSpec, abstract_params,
@@ -75,21 +81,29 @@ class Model:
         return param_dims(self.param_defs())
 
     # -- steps ---------------------------------------------------------------
-    def loss(self, params, batch):
-        return self._mod.lm_loss(params, batch, self.cfg)
+    def loss(self, params, batch, mesh=None):
+        with mesh_scope(self.cfg, mesh):
+            return self._mod.lm_loss(params, batch, self.cfg, mesh)
 
-    def forward(self, params, batch, cache=None) -> tf_mod.ForwardOut:
-        return self._mod.forward(params, batch, self.cfg, cache)
+    def forward(self, params, batch, cache=None,
+                mesh=None) -> tf_mod.ForwardOut:
+        with mesh_scope(self.cfg, mesh):
+            return self._mod.forward(params, batch, self.cfg, cache, mesh)
 
-    def prefill(self, params, batch, cache):
-        out = self.forward(params, batch, cache=cache)
-        return out.logits[:, -1], out.cache
+    def prefill(self, params, batch, cache, mesh=None):
+        with mesh_scope(self.cfg, mesh):
+            out = self.forward(params, batch, cache=cache, mesh=mesh)
+            return out.logits[:, -1], out.cache
 
-    def decode_step(self, params, batch, cache):
+    def decode_step(self, params, batch, cache, mesh=None):
         """batch['tokens']: (B, 1).  Returns (next_token (B,) int32, cache)."""
-        out = self.forward(params, batch, cache=cache)
-        next_tok = torch.argmax(out.logits[:, -1].float(), dim=-1)
-        return next_tok.to(torch.int32), out.cache
+        with mesh_scope(self.cfg, mesh):
+            out = self.forward(params, batch, cache=cache, mesh=mesh)
+            # the vocab whole on each rank (DTensor's argmax over a split
+            # dim gathers its own way)
+            last = unsplit(out.logits[:, -1].float(), -1)
+            next_tok = torch.argmax(last, dim=-1)
+            return next_tok.to(torch.int32), out.cache
 
     # -- caches ---------------------------------------------------------------
     def cache_abstract(self, batch: int, seq: int):

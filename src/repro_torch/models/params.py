@@ -13,7 +13,8 @@ stay the size of a piece: a full-width model's largest leaf (rwkv6-7b's
 ``(32, 4096, 14336)`` ``ck``) would otherwise hold ~24 bytes an element
 of temporaries beside the weights.
 ``abstract_params`` gives each leaf's shape and dtype without drawing it,
-``param_dims`` its logical dims (for the sharding port to come).
+``param_dims`` its logical dims (``distributed.sharding`` resolves
+them to mesh axes).
 """
 from __future__ import annotations
 

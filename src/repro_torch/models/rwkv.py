@@ -17,7 +17,12 @@ to ``[-DECAY_CLAMP, -1e-6]`` and the chunk kept small enough that
 2.2: |cum| <= 70.4 < 88).  ``exp(±cum)`` then reaches e^±70 by design, so
 the cumulative sum, the clamps and the products are taken in the
 reference's order.  The decode path is the exact recurrence;
-``wkv_reference`` is the O(S) oracle built from it.  Token-shift uses
+``wkv_reference`` is the O(S) oracle built from it.  Under a mesh
+(DTensor inputs) the chunk scan (``_wkv_scan``) and the decode step
+(``_wkv_step``) run in ``local_map`` over each rank's batch rows and
+heads (``sharding.split_batch_heads``), the projections through
+``layers.head_proj``/``head_unproj``, the channel mix's FFN as
+Megatron's MLP (``_channel_ffn_mesh``).  Token-shift uses
 static learned mixing, as in the reference.
 """
 from __future__ import annotations
@@ -27,8 +32,12 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import group_norm_heads
+from repro_torch.distributed.sharding import split_batch_heads
+
+from repro_torch.models.layers import (group_norm_heads, head_proj,
+                                       head_unproj)
 from repro_torch.models.params import ParamDef
 
 DECAY_CLAMP = 2.2
@@ -119,11 +128,42 @@ def _time_mix_inputs(w, x: torch.Tensor, last=None):
 
     xr, xk, xv, xw, xg = (lerp(m) for m in (w.mu_r, w.mu_k, w.mu_v, w.mu_w,
                                             w.mu_g))
-    r = torch.einsum("bsd,dhk->bshk", xr, w.wr)
-    k = torch.einsum("bsd,dhk->bshk", xk, w.wk)
-    v = torch.einsum("bsd,dhk->bshk", xv, w.wv)
-    g = torch.einsum("bsd,dhk->bshk", xg, w.wg)
+    r = head_proj(xr, w.wr)
+    k = head_proj(xk, w.wk)
+    v = head_proj(xv, w.wv)
+    g = head_proj(xg, w.wg)
     return r, k, v, g, _log_decay(w, xw)
+
+
+def _wkv_scan(rf, kf, vf, lw, u, st):
+    """The WKV6 chunks in order: r/k/v/log-decay (B, NC, Q, H, K), the
+    bonus u (H, K), the carried state (B, H, K, K) → (y (B, NC, Q, H, K),
+    the state after the last chunk)."""
+    NC, Q = rf.shape[1], rf.shape[2]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=rf.device),
+                      diagonal=-1)                       # strictly lower
+    ys = []
+    for c in range(NC):
+        rq, kq, vq, lq = (t[:, c] for t in (rf, kf, vf, lw))  # (B,Q,H,K)
+        cum = torch.cumsum(lq, dim=1)                    # inclusive
+        cum_prev = cum - lq                              # cum_{i-1}
+        q_dec = rq * torch.exp(cum_prev)
+        k_dec = kq * torch.exp(-cum)
+        att = torch.einsum("bihk,bjhk->bhij", q_dec, k_dec)
+        att = torch.where(mask[None, None], att,
+                          torch.zeros((), device=rf.device))
+        diag = torch.einsum("bihk,hk,bihk->bhi", rq, u, kq)
+        y = torch.einsum("bhij,bjhk->bihk", att, vq)
+        y = y + diag[..., None].permute(0, 2, 1, 3) * vq
+        # inter-chunk
+        y = y + torch.einsum("bihk,bhkv->bihv", q_dec, st)
+        # state update
+        tot = cum[:, -1]                                 # (B,H,K)
+        kup = kq * torch.exp(tot[:, None] - cum)
+        st = torch.exp(tot)[..., None] * st + torch.einsum(
+            "bjhk,bjhv->bhkv", kup, vq)
+        ys.append(y)
+    return torch.stack(ys, dim=1), st
 
 
 def time_mix(w, x: torch.Tensor, cfg, state: Optional[RWKVState] = None):
@@ -153,41 +193,34 @@ def time_mix(w, x: torch.Tensor, cfg, state: Optional[RWKVState] = None):
     vf = v.reshape(B, NC, Q, H, K).float()
     lw = logw.reshape(B, NC, Q, H, K)
 
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device),
-                      diagonal=-1)                       # strictly lower
     st = (state.wkv if state is not None
           else torch.zeros((B, H, K, K), dtype=torch.float32,
                            device=x.device))
-    ys = []
-    for c in range(NC):
-        rq, kq, vq, lq = (t[:, c] for t in (rf, kf, vf, lw))  # (B,Q,H,K)
-        cum = torch.cumsum(lq, dim=1)                    # inclusive
-        cum_prev = cum - lq                              # cum_{i-1}
-        q_dec = rq * torch.exp(cum_prev)
-        k_dec = kq * torch.exp(-cum)
-        att = torch.einsum("bihk,bjhk->bhij", q_dec, k_dec)
-        att = torch.where(mask[None, None], att,
-                          torch.zeros((), device=x.device))
-        diag = torch.einsum("bihk,hk,bihk->bhi", rq, w.u, kq)
-        y = torch.einsum("bhij,bjhk->bihk", att, vq)
-        y = y + diag[..., None].permute(0, 2, 1, 3) * vq
-        # inter-chunk
-        y = y + torch.einsum("bihk,bhkv->bihv", q_dec, st)
-        # state update
-        tot = cum[:, -1]                                 # (B,H,K)
-        kup = kq * torch.exp(tot[:, None] - cum)
-        st = torch.exp(tot)[..., None] * st + torch.einsum(
-            "bjhk,bjhv->bhkv", kup, vq)
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(B, S, H * K)[:, :S_real].to(x.dtype)
+    scan_in = (rf, kf, vf, lw, w.u, st)
+    if isinstance(rf, DTensor):
+        ys, st = split_batch_heads(
+            _wkv_scan, scan_in, ((0, 3), (0, 3), (0, 3), (0, 3), (None, 0),
+                                 (0, 1)), ((0, 3), (0, 1)))
+    else:
+        ys, st = _wkv_scan(*scan_in)
+    y = ys.reshape(B, S, H * K)[:, :S_real].to(x.dtype)
 
     y = group_norm_heads(y, w.ln_x, H, cfg.norm_eps)
     y = y * F.silu(g.reshape(B, S_real, H * K))
-    out = torch.einsum("bshk,hkd->bsd", y.reshape(B, S_real, H, K), w.wo)
+    out = head_unproj(y.reshape(B, S_real, H, K), w.wo)
     new = None
     if state is not None:
         new = state._replace(wkv=st, shift_tm=x[:, -1])
     return out, new
+
+
+def _wkv_step(r1, k1, v1, lw1, u, wkv):
+    """One token of the WKV6 recurrence: r/k/v/log-decay (B, H, K), the
+    bonus u (H, K), the state (B, H, K, K) → (y (B, H, K), the state)."""
+    kv = torch.einsum("bhk,bhv->bhkv", k1, v1)
+    y = torch.einsum("bhk,bhkv->bhv", r1 * u[None], kv)
+    y = y + torch.einsum("bhk,bhkv->bhv", r1, wkv)
+    return y, torch.exp(lw1)[..., None] * wkv + kv
 
 
 def _time_mix_decode(w, x: torch.Tensor, cfg, state: RWKVState):
@@ -195,16 +228,18 @@ def _time_mix_decode(w, x: torch.Tensor, cfg, state: RWKVState):
     B, S, D = x.shape
     H, K = rwkv_dims(cfg)
     r, k, v, g, logw = _time_mix_inputs(w, x, state.shift_tm)
-    r1, k1, v1 = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
-    lw1 = logw[:, 0]                                     # (B,H,K)
-    kv = torch.einsum("bhk,bhv->bhkv", k1, v1)
-    y = torch.einsum("bhk,bhkv->bhv", r1 * w.u[None], kv)
-    y = y + torch.einsum("bhk,bhkv->bhv", r1, state.wkv)
-    st = torch.exp(lw1)[..., None] * state.wkv + kv
+    step_in = (r[:, 0].float(), k[:, 0].float(), v[:, 0].float(),
+               logw[:, 0], w.u, state.wkv)                # (B,H,K), ...
+    if isinstance(step_in[0], DTensor):
+        y, st = split_batch_heads(_wkv_step, step_in,
+                                  ((0, 1),) * 4 + ((None, 0), (0, 1)),
+                                  ((0, 1), (0, 1)))
+    else:
+        y, st = _wkv_step(*step_in)
     y = y.reshape(B, 1, H * K).to(x.dtype)
     y = group_norm_heads(y, w.ln_x, H, cfg.norm_eps)
     y = y * F.silu(g.reshape(B, 1, H * K))
-    out = torch.einsum("bshk,hkd->bsd", y.reshape(B, 1, H, K), w.wo)
+    out = head_unproj(y.reshape(B, 1, H, K), w.wo)
     return out, state._replace(wkv=st, shift_tm=x[:, -1])
 
 
@@ -213,10 +248,46 @@ def channel_mix(w, x: torch.Tensor, state: Optional[RWKVState] = None):
     prev = _shift(x, last)
     xk = x + (prev - x) * w.mu_ck
     xr = x + (prev - x) * w.mu_cr
-    kk = torch.square(torch.relu(xk @ w.ck))
-    out = torch.sigmoid(xr @ w.cr) * (kk @ w.cv)
+    if isinstance(w.ck, DTensor):
+        out = _channel_ffn_mesh(xk, xr, w.ck, w.cv, w.cr)
+    else:
+        out = _channel_ffn(xk, xr, w.ck, w.cv, w.cr)
     new = state._replace(shift_cm=x[:, -1]) if state is not None else None
     return out, new
+
+
+def _channel_ffn(xk, xr, ck, cv, cr):
+    kk = torch.square(torch.relu(xk @ ck))
+    return torch.sigmoid(xr @ cr) * (kk @ cv)
+
+
+def _channel_ffn_mesh(xk, xr, ck, cv, cr):
+    """The channel mix's FFN on DTensors in ``local_map``, as Megatron's
+    MLP: ``ck`` split along its output and ``cv`` along its input where
+    the rules split ``mlp``, ``cr`` whole, each rank its batch rows, the
+    output a ``Partial`` sum over the ranks of the split (the receptance
+    gate multiplies each rank's part)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.models.layers import _batch_placements
+    mesh = ck.device_mesh
+    xp = _batch_placements(xk)
+    split = [p.is_shard() and p.dim == 1 for p in ck.placements]
+    ckp = [Shard(1) if s_ else Replicate() for s_ in split]
+    cvp = [Shard(0) if s_ else Replicate() for s_ in split]
+    rep = [Replicate()] * mesh.ndim
+    out = [Partial() if s_ else p for s_, p in zip(split, xp)]
+
+    def wgrad(pl, partial_split=False):
+        return [Partial() if p.is_shard() or (s_ and partial_split) else q
+                for p, q, s_ in zip(xp, pl, split)]
+
+    return local_map(_channel_ffn, out_placements=out,
+                     in_placements=(xp, xp, ckp, cvp, rep),
+                     in_grad_placements=(out, out, wgrad(ckp), wgrad(cvp),
+                                         wgrad(rep, True)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        xk, xr, ck, cv, cr)
 
 
 def wkv_reference(w, x: torch.Tensor, cfg) -> torch.Tensor:

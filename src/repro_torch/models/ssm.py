@@ -19,6 +19,12 @@ intra-chunk decays ``exp(cum_i − cum_j)`` are masked to −inf above the
 diagonal *before* the ``exp``.  The reference takes the ``exp`` over the
 whole chunk and masks after it; at a chunk of 128 the upper triangle
 overflows, and its gradient turns non-finite.  The forward is the same.
+
+Under a mesh (DTensor inputs) the chunk scan (``_ssd_scan``) runs in
+``local_map`` over each rank's batch rows and SSM heads
+(``sharding.split_batch_heads``): DTensor's rules shard the chunk dim and
+gather it back for every chunk's ``select``.  So does the causal conv
+(``_causal_conv_mesh``), over batch rows and channels.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import split_batch_heads
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamDef
 
@@ -67,7 +75,12 @@ def mamba_defs(cfg, n_layers=None):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv along time.  x: (B, S, C), w: (dc, C)."""
+    """Depthwise causal conv along time.  x: (B, S, C), w: (dc, C).  On
+    DTensors in ``local_map`` (each rank its batch rows and channels: the
+    conv is per channel), where DTensor's rules for the shifted pads fail
+    in some torch versions."""
+    if isinstance(x, DTensor):
+        return _causal_conv_mesh(x, w)
     dc = w.shape[0]
     S = x.shape[1]
     out = x * w[-1]
@@ -75,6 +88,21 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         shifted = F.pad(x, (0, 0, i, 0))[:, :S]
         out = out + shifted * w[-1 - i]
     return out
+
+
+def _causal_conv_mesh(x, w):
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    xp = [p if p.is_shard() and p.dim in (0, 2) else Replicate()
+          for p in x.placements]
+    wp = [p.__class__(1) if p.is_shard() and p.dim == 2 else Replicate()
+          for p in xp]
+    wg = [Partial() if p.is_shard() and p.dim == 0 else q
+          for p, q in zip(xp, wp)]
+    return local_map(_causal_conv, out_placements=xp, in_placements=(xp, wp),
+                     in_grad_placements=(xp, wg), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def _conv_state_step(buf: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor):
@@ -115,6 +143,36 @@ def _discretize(w, dt):
     return dt, dt * A                                    # dt (B,S,H), dA <= 0
 
 
+def _ssd_scan(xh, btc, ctc, dtc, dAc, state):
+    """The SSD chunks in order: xh (B, NC, Q, H, Pd), btc/ctc (B, NC, Q,
+    N), dtc/dAc (B, NC, Q, H), the carried state (B, H, Pd, N) → (y
+    (B, NC, Q, H, Pd), the state after the last chunk)."""
+    NC, Q = xh.shape[1], xh.shape[2]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
+    ys = []
+    for c in range(NC):
+        xq, bq, cq, dtq, daq = (t[:, c] for t in (xh, btc, ctc, dtc, dAc))
+        cum = torch.cumsum(daq, dim=1)                   # (B,Q,H) inclusive
+        # intra-chunk
+        cb = torch.einsum("bin,bjn->bij", cq, bq)        # (B,Q,Q)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]   # (B,Q,Q,H) i,j
+        # −inf above the diagonal before the exp (ROADMAP C17)
+        att = torch.exp(diff.masked_fill(~mask[None, :, :, None],
+                                         float("-inf")))
+        att = att * cb[..., None] * dtq[:, None, :, :]   # weight token j
+        y = torch.einsum("bijh,bjhp->bihp", att, xq)
+        # inter-chunk: the carried state's contribution
+        y = y + torch.einsum("bin,bhpn->bihp", cq, state) * \
+            torch.exp(cum)[..., None]
+        # state update
+        decay_all = torch.exp(cum[:, -1])                # (B,H)
+        wj = dtq * torch.exp(cum[:, -1:, :] - cum)       # (B,Q,H)
+        state = decay_all[..., None, None] * state + torch.einsum(
+            "bjh,bjn,bjhp->bhpn", wj, bq, xq)
+        ys.append(y)
+    return torch.stack(ys, dim=1), state
+
+
 def mamba_block(w, x: torch.Tensor, cfg,
                 ssm_state: Optional[SSMState] = None):
     """Full Mamba2 mixer.  x: (B, S, D) → (y, new_state | None).
@@ -150,32 +208,17 @@ def mamba_block(w, x: torch.Tensor, cfg,
     dtc = dt.reshape(B, NC, Q, H)
     dAc = dA.reshape(B, NC, Q, H)
 
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     state = (ssm_state.state if ssm_state is not None
              else torch.zeros((B, H, Pd, N), dtype=torch.float32,
                               device=x.device))
-    ys = []
-    for c in range(NC):
-        xq, bq, cq, dtq, daq = (t[:, c] for t in (xh, btc, ctc, dtc, dAc))
-        cum = torch.cumsum(daq, dim=1)                   # (B,Q,H) inclusive
-        # intra-chunk
-        cb = torch.einsum("bin,bjn->bij", cq, bq)        # (B,Q,Q)
-        diff = cum[:, :, None, :] - cum[:, None, :, :]   # (B,Q,Q,H) i,j
-        # −inf above the diagonal before the exp (ROADMAP C17)
-        att = torch.exp(diff.masked_fill(~mask[None, :, :, None],
-                                         float("-inf")))
-        att = att * cb[..., None] * dtq[:, None, :, :]   # weight token j
-        y = torch.einsum("bijh,bjhp->bihp", att, xq)
-        # inter-chunk: the carried state's contribution
-        y = y + torch.einsum("bin,bhpn->bihp", cq, state) * \
-            torch.exp(cum)[..., None]
-        # state update
-        decay_all = torch.exp(cum[:, -1])                # (B,H)
-        wj = dtq * torch.exp(cum[:, -1:, :] - cum)       # (B,Q,H)
-        state = decay_all[..., None, None] * state + torch.einsum(
-            "bjh,bjn,bjhp->bhpn", wj, bq, xq)
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(B, S, H, Pd)
+    scan_in = (xh, btc, ctc, dtc, dAc, state)
+    if isinstance(xh, DTensor):
+        ys, state = split_batch_heads(
+            _ssd_scan, scan_in, ((0, 3), (0, None), (0, None), (0, 3),
+                                 (0, 3), (0, 1)), ((0, 3), (0, 1)))
+    else:
+        ys, state = _ssd_scan(*scan_in)
+    y = ys.reshape(B, S, H, Pd)
     y = y + xh.reshape(B, S, H, Pd) * w.D_skip[None, None, :, None]
     y = y.reshape(B, S, d_in)[:, :S_real].to(x.dtype)
 

@@ -32,6 +32,17 @@ back (the optimizer's and the checkpoint's leaves, in jax's order), and
 by one ``unbind`` each, so a layer's gradient lands in its slice of the
 stacked leaf's gradient, as the reference's scan writes it.  ``DenseLM``
 is the same class, under the name the dense slices gave it.
+
+Under a mesh (``mesh=`` a ``DeviceMesh``, the weights DTensors) the
+reference's sharding constraints are kept where it has them: the
+embedding's output and each block's output are ``constrain``ed to
+``("batch", "seq", "embed")`` (and, beyond the reference, the residual
+after each attention or time mix, where XLA's propagation reduces the
+heads' partial sum and DTensor would carry it into the MLP), and each
+block re-asserts its layer's
+weight placements (``constrain_layer_weights``) inside the block, so
+that remat gathers a layer's weights again in the backward instead of
+holding every layer's gathered weights.
 """
 from __future__ import annotations
 
@@ -43,13 +54,14 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed.sharding import constrain, for_use, get_mesh
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_param, attention_defs, cross_entropy,
-                                       embed_defs, head_defs, logits_from,
-                                       multihead_attention, rms_norm, swiglu,
-                                       swiglu_defs)
+                                       embed_defs, embed_lookup, head_defs,
+                                       logits_from, multihead_attention,
+                                       rms_norm, swiglu, swiglu_defs)
 from repro_torch.models.params import ParamDef, TensorSpec, torch_dtype
 
 #: the families that ``stack_defs`` and ``forward`` run (encdec has its own
@@ -274,6 +286,29 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
 # Blocks
 # ---------------------------------------------------------------------------
 
+def weights_for_use(w):
+    """A layer's weights (a namespace, a ``_Tree`` or a list) with every
+    leaf through ``sharding.for_use``."""
+    if isinstance(w, torch.Tensor):
+        return for_use(w)
+    if isinstance(w, (list, tuple, nn.ParameterList, nn.ModuleList)):
+        return [weights_for_use(t) for t in w]
+    keys = w._keys if isinstance(w, _Tree) else vars(w)
+    return SimpleNamespace(**{k: weights_for_use(getattr(w, k))
+                              for k in keys})
+
+
+def constrain_layer_weights(w, cfg):
+    """A layer's weights as its block uses them, inside the block (so
+    that remat gathers them again in the backward, where the reference
+    re-asserts their per-layer sharding for the same end): a ZeRO-3
+    split is gathered (``sharding.for_use``); a no-op without an active
+    mesh."""
+    if get_mesh() is None:
+        return w
+    return weights_for_use(w)
+
+
 def _attn_block(w, x, cfg, positions, cache_kv=None, cache_pos=None):
     h = rms_norm(x, w.ln1, cfg.norm_eps)
     if cache_kv is not None:
@@ -284,37 +319,48 @@ def _attn_block(w, x, cfg, positions, cache_kv=None, cache_pos=None):
     else:
         a = multihead_attention(w.attn, h, cfg=cfg, positions=positions)
         new_kv = None
-    return x + a, new_kv
+    # the attention's sum over the heads is reduced here, as XLA's
+    # propagation reduces it, not left to the MLP (DTensor would gather
+    # the MLP's weights to keep a partial sum going)
+    return constrain(x + a, ("batch", "seq", "embed")), new_kv
 
 
-def dense_block(w, x, cfg, positions, cache_kv=None, cache_pos=None):
+def dense_block(w, x, cfg, positions, cache_kv=None, cache_pos=None,
+                mesh=None):
     """One block of the attention families on the layer weights ``w`` →
     (x, MoE aux loss or 0.0, new K/V pair or None)."""
+    w = constrain_layer_weights(w, cfg)
     x, new_kv = _attn_block(w, x, cfg, positions, cache_kv, cache_pos)
     h = rms_norm(x, w.ln2, cfg.norm_eps)
     if cfg.family == "moe":
-        f, aux = moe_mod.moe_ffn(w.moe, h, cfg)
+        f, aux = moe_mod.moe_ffn(w.moe, h, cfg, mesh)
     else:
         f, aux = swiglu(w.mlp, h), 0.0
-    return x + f, aux, new_kv
+    x = constrain(x + f, ("batch", "seq", "embed"))
+    return x, aux, new_kv
 
 
 def _rwkv_block(w, x, cfg, state=None):
+    w = constrain_layer_weights(w, cfg)
     h = rms_norm(x, w.ln1, cfg.norm_eps)
     t, state = rwkv_mod.time_mix(w.rwkv, h, cfg, state)
-    x = x + t
+    x = constrain(x + t, ("batch", "seq", "embed"))
     h = rms_norm(x, w.ln2, cfg.norm_eps)
     c, state = rwkv_mod.channel_mix(w.rwkv, h, state)
-    return x + c, state
+    x = constrain(x + c, ("batch", "seq", "embed"))
+    return x, state
 
 
 def _mamba_layer(w, x, cfg, state=None):
+    w = constrain_layer_weights(w, cfg)
     h = rms_norm(x, w.ln, cfg.norm_eps)
     m, state = ssm_mod.mamba_block(w.mamba, h, cfg, state)
-    return x + m, state
+    x = constrain(x + m, ("batch", "seq", "embed"))
+    return x, state
 
 
 def _shared_attn_block(w, x, cfg, positions, cache_kv=None, cache_pos=None):
+    w = constrain_layer_weights(w, cfg)
     x, new_kv = _attn_block(w, x, cfg, positions, cache_kv, cache_pos)
     h = rms_norm(x, w.ln2, cfg.norm_eps)
     return x + swiglu(w.mlp, h), new_kv
@@ -355,18 +401,19 @@ def remat_block(block, w, x, cfg, *args):
                            **kw)
 
 
-def _run_attn_family(params: LM, x, cfg, positions, cache):
+def _run_attn_family(params: LM, x, cfg, positions, cache, mesh=None):
     remat = remat_wanted(params, cfg, cache)
     aux_total = 0.0
     for i, w in enumerate(params.layers):
         if remat:
-            x, aux, _ = remat_block(dense_block, w, x, cfg, positions)
+            x, aux, _ = remat_block(dense_block, w, x, cfg, positions,
+                                    None, None, mesh)
         else:
             ckv = (cache["k"][i], cache["v"][i]) if cache is not None \
                 else None
             x, aux, _ = dense_block(w, x, cfg, positions, ckv,
                                     cache["pos"] if cache is not None
-                                    else None)
+                                    else None, mesh)
         aux_total = aux_total + aux
     if cache is None:
         return x, aux_total, None
@@ -405,19 +452,20 @@ def _run_hybrid(params: LM, x, cfg, positions, cache):
     application (written in place)."""
     L, ae = cfg.n_layers, cfg.hybrid.attn_every
     layers = params.layers
+    shared = params.p.shared
     pos = cache["pos"] if cache is not None else None
     remat = remat_wanted(params, cfg, cache)
     new = {k: [] for k in _SSM_KEYS}
     for gi, lo in enumerate(range(0, L, ae)):
         if remat:
-            x, _ = remat_block(_shared_attn_block, params.p.shared, x, cfg,
+            x, _ = remat_block(_shared_attn_block, shared, x, cfg,
                                positions)
             for i in range(lo, min(lo + ae, L)):
                 x, _ = remat_block(_mamba_layer, layers[i], x, cfg)
             continue
         ckv = ((cache["attn_k"][gi], cache["attn_v"][gi])
                if cache is not None else None)
-        x, _ = _shared_attn_block(params.p.shared, x, cfg, positions, ckv,
+        x, _ = _shared_attn_block(shared, x, cfg, positions, ckv,
                                   pos)
         for i in range(lo, min(lo + ae, L)):
             st = (ssm_mod.SSMState(*(cache[k][i] for k in _SSM_KEYS))
@@ -442,19 +490,22 @@ class ForwardOut(NamedTuple):
 
 
 def forward(params: LM, batch: Dict[str, torch.Tensor], cfg,
-            cache=None) -> ForwardOut:
+            cache=None, mesh=None) -> ForwardOut:
     """batch: {'tokens': (B, S) int, optional 'patches': (B, P,
-    patch_dim) (vlm), optional 'positions': (B, S)}."""
+    patch_dim) (vlm), optional 'positions': (B, S)}.  ``mesh``: the
+    ``DeviceMesh`` the DTensor weights and batch lie on (the MoE's
+    paths take it; the caller enters ``sharding.mesh_scope``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params.tok[tokens.long()].to(torch_dtype(cfg.dtype))
+    x = embed_lookup(for_use(params.tok), tokens).to(torch_dtype(cfg.dtype))
     if cfg.family == "vlm" and batch.get("patches") is not None:
         p = torch.einsum("bpe,ed->bpd", batch["patches"].to(x.dtype),
-                         params.p.patch_proj)
+                         for_use(params.p.patch_proj))
         x = torch.cat([p, x], dim=1)
         S = x.shape[1]
     if cfg.family == "ssm":
-        x = rms_norm(x, params.p.ln_in, cfg.norm_eps)
+        x = rms_norm(x, for_use(params.p.ln_in), cfg.norm_eps)
+    x = constrain(x, ("batch", "seq", "embed"))
 
     positions = batch.get("positions")
     if positions is None:
@@ -465,14 +516,15 @@ def forward(params: LM, batch: Dict[str, torch.Tensor], cfg,
 
     aux = 0.0
     if cfg.family in ATTN_FAMILIES:
-        x, aux, cache = _run_attn_family(params, x, cfg, positions, cache)
+        x, aux, cache = _run_attn_family(params, x, cfg, positions, cache,
+                                         mesh)
     elif cfg.family == "ssm":
         x, cache = _run_rwkv(params, x, cfg, cache)
     elif cfg.family == "hybrid":
         x, cache = _run_hybrid(params, x, cfg, positions, cache)
     else:
         raise ValueError(cfg.family)
-    x = rms_norm(x, params.ln_f, cfg.norm_eps)
+    x = rms_norm(x, for_use(params.ln_f), cfg.norm_eps)
     return ForwardOut(logits_from(params, x, cfg), aux, cache)
 
 
@@ -489,6 +541,6 @@ def loss_from_logits(logits: torch.Tensor, batch, cfg,
     return loss
 
 
-def lm_loss(params: LM, batch, cfg) -> torch.Tensor:
-    out = forward(params, batch, cfg)
+def lm_loss(params: LM, batch, cfg, mesh=None) -> torch.Tensor:
+    out = forward(params, batch, cfg, mesh=mesh)
     return loss_from_logits(out.logits, batch, cfg, out.aux_loss)

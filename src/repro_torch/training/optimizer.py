@@ -12,8 +12,10 @@ the step, on every leaf (norms and embeddings too).
 Trees are the port's dict/list trees in jax's leaf order (an ``LM``
 stands for its ``tree()``).  ``apply_update`` updates the state's tensors
 in place (the reference returns new arrays), so a full-width state is
-held once.  The reference's ZeRO sharding of the state waits for the
-sharding port (ROADMAP A7(c)).
+held once.  Under a mesh the state's leaves are DTensors laid out by
+``training.steps.opt_state_shardings`` (ZeRO-1: the weight's spec and
+``data`` on its first free divisible dim) and the same ops run on
+them.
 """
 from __future__ import annotations
 

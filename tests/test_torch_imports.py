@@ -46,4 +46,8 @@ def test_scan_sees_the_package():
             "train_lm_on_graph_corpus.py", "moe.py", "ssm.py", "rwkv.py",
             "encdec.py", "model.py", "qwen3_moe_30b_a3b.py",
             "llama4_scout_17b_16e.py", "pixtral_12b.py", "zamba2_1_2b.py",
-            "rwkv6_7b.py", "seamless_m4t_medium.py"} <= names
+            "rwkv6_7b.py", "seamless_m4t_medium.py", "sharding.py",
+            "compression.py", "costs.py", "dryrun.py",
+            "roofline.py"} <= names
+    launch = {p.name for p in FILES if p.parent.name == "launch"}
+    assert {"__init__.py", "mesh.py", "costs.py", "dryrun.py"} <= launch
