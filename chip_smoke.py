@@ -315,6 +315,22 @@ probes S1-S4 (phase 12):
     against its plain version at that shape.  The wall is logged beside
     ``PLAN_BUDGET_S``; K2's row carries ``plan_path_launches`` and
     ``plan_path_max_abs_err``.
+22. the port checks itself (run after phase 21, ``phase_analysis``):
+    (a) ``repro_torch.analysis.lint`` over its default scope against
+    ``src/repro_torch/analysis/baseline.json``: no new finding; (b) two
+    lockset stress runs at ``pipeline_depth=2`` with 2 host workers, K2
+    in the struct stage — ``analysis.races.run_stress`` (KDE + random
+    aligner) and the committed asset's GAN + GBDT ``FeatureSpec`` at ×1
+    under ``races.instrument_job`` (draws and alignment on the card in
+    the pool threads), 10 shards each: zero candidate races, the watched
+    surface exercised, a dataset that verifies, shards equal to the same
+    job at depth 0 on the card; (c) the kernel-library load audit
+    (``analysis.retrace.run_retrace``) with ``cuda_prng`` and
+    ``cuda_bits``: no ``nvcc`` start, no load in steady state; (d) K2's
+    and K1's launches in (b)-(c) equal the plans' chunk counts, and each
+    kernel equals its plain version on a chunk of every size there.  The
+    wall is logged beside ``ANALYSIS_BUDGET_S``; K1's and K2's rows carry
+    ``analysis_path_launches`` and ``analysis_path_max_abs_err``.
 
 Phase 1 also builds the probes' torch-op library (``spike_ops.cpp`` with
 ``spike_elementwise.cu`` and ``spike.cu``) beside the ``ctypes`` libraries,
@@ -4310,6 +4326,222 @@ def phase_plan(host: PlanHost, g, train: dict, tr, ref, rs, get_config,
     return out, k2, err
 
 
+#: phase 22's budget and sizes: the stress runs (KDE + random aligner,
+#: the JAX package's stress spec; the committed asset's GAN + GBDT at its
+#: ×1, 40 000 edges) in shards of 4096 edges (10 a run), the load audit
+#: at the module's defaults (8 shards of 8192)
+ANALYSIS_BUDGET_S = 30.0
+ANALYSIS_EDGES, ANALYSIS_SHARD = 40_000, 4096
+ANALYSIS_AUDIT_EDGES, ANALYSIS_AUDIT_SHARD = 60_000, 8192
+#: the stress and audit jobs' structure (``analysis.races.run_stress``,
+#: ``analysis.retrace.run_retrace``)
+ANALYSIS_N = 12
+#: what the stress runs must have watched
+ANALYSIS_WATCHED = ("FeatureSpec.feat_s", "AsyncFlushQueue.busy_s",
+                    "Tracer._totals")
+
+
+def _analysis_stress(label: str, run, work: str, torch) -> dict:
+    """One lockset stress run at depth 2 × 2 workers and the same job at
+    depth 0, both on the card: ``run(path, depth, workers)`` returns the
+    monitor and the job's directory."""
+    import os
+    from repro_torch.datastream import Manifest, ShardedGraphDataset
+    t0 = time.time()
+    mon = run(os.path.join(work, f"{label}-pipelined"), 2, 2)
+    torch.cuda.synchronize()
+    t_run = time.time() - t0
+    serial = os.path.join(work, f"{label}-serial")
+    run(serial, 0, 1)
+    piped = os.path.join(work, f"{label}-pipelined")
+    races_found = [r.render() for r in mon.races()]
+    states = {v: mon.state_of(v) for v in
+              (*ANALYSIS_WATCHED, "FeatureSpec.align_s",
+               "ShardWriter._since_checkpoint",
+               "ChunkShardSource._suffix_dev")}
+    problems = ShardedGraphDataset(piped).verify(deep=True)
+    n_shards = len(Manifest.load(piped).shards)
+    same = _shards_equal(piped, serial) and \
+        _sans_executor(piped) == _sans_executor(serial)
+    log(f"analysis (b) {label}: {n_shards} shards at depth 2 x 2 workers "
+        f"in {t_run:.3f}s: {mon.summary()}; states {states}; deep verify "
+        f"{problems}; shards and manifest (bar the executor) equal to "
+        f"depth 0 on the card: {same}")
+    check(not races_found, f"22(b) {label}: candidate races: {races_found}")
+    check(all(states[v] != "unwatched" for v in ANALYSIS_WATCHED),
+          f"22(b) {label}: the watched surface was not exercised: {states}")
+    check(problems == [], f"22(b) {label}: verify: {problems[:3]}")
+    check(n_shards >= 8, f"22(b) {label}: {n_shards} shards, not >= 8")
+    check(same, f"22(b) {label}: the pipelined dataset differs from the "
+          "serial one")
+    return {"shards": n_shards, "s": t_run, "races": 0,
+            "accesses": mon.n_accesses, "states": states}
+
+
+def _analysis_plans(asset_fit):
+    """The chunk plans phase 22 drives, each with the sampler backend it
+    runs and how often it runs each chunk: the stress runs' (twice each:
+    depth 2 and depth 0) and the audit's (two passes a backend)."""
+    from repro_torch.core.structure import KroneckerFit
+    from repro_torch.datastream.scheduler import ChunkScheduler
+
+    def demo(E):
+        return KroneckerFit(*DEMO_THETA, n=ANALYSIS_N, m=ANALYSIS_N, E=E)
+
+    audit = ChunkScheduler(demo(ANALYSIS_AUDIT_EDGES), ANALYSIS_AUDIT_SHARD,
+                           seed=0)
+    return [
+        ("kde", ChunkScheduler(demo(ANALYSIS_EDGES), ANALYSIS_SHARD,
+                               seed=0), "cuda_prng", 2),
+        ("gan", ChunkScheduler(asset_fit, ANALYSIS_SHARD, seed=0),
+         "cuda_prng", 2),
+        ("audit", audit, "cuda_prng", 2), ("audit", audit, "cuda_bits", 2)]
+
+
+def _analysis_kernels_vs_plain(plans, tr, sampler, ref, rs, torch) -> int:
+    """K2 (``cuda_prng``) and K1 (``cuda_bits``) on the first chunk of
+    each size in the phase's plans (the GAN plan's 4 148 chunks have 102
+    sizes), each against its plain version at that chunk's shape, key and
+    per-level θ.  Returns the max error."""
+    err = 0
+    for label, sched, backend, _ in plans:
+        th = torch.tensor(sched.thetas[sched.k_pref:], dtype=torch.float32,
+                          device="cuda")
+        n_s, m_s = sched.fit.n - sched.k_pref, sched.fit.m - sched.k_pref
+        e_plan = 0
+        sizes = {ck.n_edges: ck for ck in reversed(sched.chunks)}
+        for ck in sizes.values():
+            key = sched.key_for(ck)
+            pad = sampler._pad_edges(ck.n_edges,
+                                     sampler.choose_block(ck.n_edges))
+            if backend == "cuda_prng":
+                got = rs.rmat_sample_prng(key, th, n_s, m_s, ck.n_edges,
+                                          pad)
+                want = ref.rmat_prng_ref(key, th, n_s, m_s, ck.n_edges, pad)
+            else:
+                bits = tr.bits(key, (max(n_s, m_s), pad), "cuda")
+                got = rs.rmat_sample_bits(th, bits, n_s, m_s)
+                want = ref.rmat_parts_ref(th, ref.bits_to_uniform_ref(bits),
+                                          n_s, m_s)
+            e_plan = max(e_plan, max_word_err(got, want))
+        log(f"analysis (d) {label} ({backend}): {len(sizes)} chunk sizes "
+            f"of {len(sched.chunks)} chunks, n={n_s} m={m_s}, E "
+            f"{min(sizes)}-{max(sizes)}, against the plain version: "
+            f"max|err| {e_plan}")
+        err = max(err, e_plan)
+    return err
+
+
+def phase_analysis(convert, tr, sampler, ref, rs, torch) -> dict:
+    """Phase 22: the port checks itself on the card.
+
+    (a) the lint (``analysis.lint.run_lint`` over the default scope)
+    against ``src/repro_torch/analysis/baseline.json``: no new finding.
+    (b) two lockset stress runs at ``pipeline_depth=2`` with 2 host
+    workers, K2 in the struct stage: ``analysis.races.run_stress`` (the
+    KDE + random-aligner spec), and the committed asset's GAN + GBDT
+    ``FeatureSpec`` through ``DatasetJob`` under ``instrument_job`` (its
+    draws and alignment on the card in the pool threads): zero candidate
+    races, the watched surface exercised, a dataset that verifies, shards
+    equal to the same job at depth 0 on the card.  (c) the load audit
+    (``analysis.retrace.run_retrace``) with ``cuda_prng`` and
+    ``cuda_bits``: no ``nvcc`` start (phase 1 built everything), no load
+    in steady state.  (d) K2's and K1's launches in (b)-(c) equal the
+    plans' chunk counts, and each kernel equals its plain version on a
+    chunk of every size in those plans.  Returns the phase's numbers
+    with K1's and K2's launches and max errors."""
+    import shutil
+    import tempfile
+
+    from repro_torch.analysis import baseline as baseline_mod
+    from repro_torch.analysis import lint, races, retrace
+    from repro_torch.datastream import DatasetJob, FeatureSpec
+    from repro_torch.obs.trace import Tracer
+
+    t_phase = time.time()
+    out = {}
+    t0 = time.time()
+    found = lint.run_lint(ROOT)
+    base = baseline_mod.load(ROOT / "src" / "repro_torch" / "analysis"
+                             / "baseline.json")
+    new, frozen, stale = baseline_mod.apply(found, base)
+    out["lint"] = {"s": time.time() - t0, "new": len(new),
+                   "baselined": len(frozen), "stale": len(stale),
+                   "files": len(lint.collect_files(ROOT,
+                                                   lint.DEFAULT_PATHS))}
+    log(f"analysis (a): lint of {out['lint']['files']} files in "
+        f"{out['lint']['s']:.2f}s: {len(new)} new, {len(frozen)} "
+        f"baselined, {len(stale)} stale" + "".join(
+            f"\n  {v.render()}" for v in new))
+    check(not new, "22(a): new lint findings")
+
+    pipe = convert.pipeline_from_state(convert.load_state(ASSET),
+                                       device="cuda")
+    fit1 = pipe.struct.scaled(1)
+    plans = _analysis_plans(fit1)
+
+    def kde(path, depth, workers):
+        return races.run_stress(path, edges=ANALYSIS_EDGES,
+                                shard_edges=ANALYSIS_SHARD,
+                                pipeline_depth=depth, host_workers=workers,
+                                device="cuda")
+
+    def gan(path, depth, workers):
+        mon = races.RaceMonitor()
+        job = DatasetJob(fit1, path, shard_edges=ANALYSIS_SHARD, seed=0,
+                         features=FeatureSpec(pipe.features, pipe.aligner),
+                         backend="cuda_prng", pipeline_depth=depth,
+                         host_workers=workers, tracer=Tracer(),
+                         device="cuda")
+        with races.instrument_job(mon, job):
+            job.run()
+        log(_stage_line(f"analysis (b) gan, depth {depth}", job.timings,
+                        fit1.E))
+        return mon
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    torch.cuda.synchronize()
+    rs.reset_launches()
+    try:
+        out["kde"] = _analysis_stress("kde", kde, work, torch)
+        out["gan"] = _analysis_stress("gan", gan, work, torch)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    audits = {}
+    for backend in ("cuda_prng", "cuda_bits"):
+        rep = retrace.run_retrace(edges=ANALYSIS_AUDIT_EDGES,
+                                  shard_edges=ANALYSIS_AUDIT_SHARD,
+                                  backend=backend, device="cuda")
+        log(f"analysis (c): {rep.render()}; counts {rep.counts}")
+        check(rep.ok and rep.first_pass_builds == 0
+              and rep.steady_state_loads == 0,
+              f"22(c): the load audit failed: {rep.render()}")
+        audits[backend] = {k: getattr(rep, k) for k in (
+            "shards", "first_pass_builds", "first_pass_loads",
+            "steady_state_builds", "steady_state_loads", "rebuilds",
+            "constructed")}
+    torch.cuda.synchronize()
+    launches = dict(rs.LAUNCHES)
+    out["audit"] = audits
+    want = {"rmat_sample_prng": 0, "rmat_sample_bits": 0}
+    for _, sched, backend, runs in plans:
+        want[{"cuda_prng": "rmat_sample_prng",
+              "cuda_bits": "rmat_sample_bits"}[backend]] += \
+            runs * len(sched.chunks)
+    log(f"analysis (d): launches in (b)-(c) {launches}; the plans' chunks "
+        f"{want}")
+    check(all(launches[k] == n for k, n in want.items()),
+          "22(d): the kernels' launches differ from the plans' chunks")
+    err = _analysis_kernels_vs_plain(plans, tr, sampler, ref, rs, torch)
+    check(err == 0, f"22(d): a kernel differs from its plain version "
+          f"({err})")
+    del pipe
+    torch.cuda.empty_cache()
+    out.update(launches={k: launches[k] for k in want}, err=err,
+               wall=time.time() - t_phase)
+    return out
+
+
 def flash_d128_timing(fa, torch) -> dict:
     """The tensor-core kernel at head dim 128 (the d = 128 template, which
     the scoring shape does not run), at the attention shape of a d = 128
@@ -4773,6 +5005,12 @@ def main() -> int:
     log(f"plan: phase 21 wall {plan['wall']:.1f}s of its "
         f"{PLAN_BUDGET_S:.0f}s budget; " + json.dumps(plan))
     clock("21")
+    analysis = phase_analysis(convert, tr, sampler, ref, rs, torch)
+    for name in ("rmat_sample_prng", "rmat_sample_bits"):
+        errs[name] = max(errs[name], analysis["err"])
+    log(f"analysis: phase 22 wall {analysis['wall']:.1f}s of its "
+        f"{ANALYSIS_BUDGET_S:.0f}s budget; " + json.dumps(analysis))
+    clock("22")
     rows = phase_timing(tr, ref, rs, torch, errs, launches, largest)
     if sass:
         rows[-1]["sass_level_loop"] = sass
@@ -4796,6 +5034,10 @@ def main() -> int:
         if row["name"] in bench["launches"]:
             row.update(bench_path_launches=bench["launches"][row["name"]],
                        bench_path_max_abs_err=bench["err"])
+        if row["name"] in analysis["launches"]:
+            row.update(
+                analysis_path_launches=analysis["launches"][row["name"]],
+                analysis_path_max_abs_err=analysis["err"])
     rows.append(phase_flash_timing(fa, ref, torch,
                                    launches["flash_attention"],
                                    errs["flash_attention"]))

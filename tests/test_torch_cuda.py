@@ -32,7 +32,11 @@ whose gradient is near 1e-8 into a part of lr); a checkpoint written on
 the card restores on the CPU exactly.  The other LM families at their
 smoke widths in float32 give the CPU's logits within 1e-4 (the hybrid's
 5e-4, the spread of its SSD chunks in float32), the MoE router's ids and
-dispatch buffers exactly, and prefill + decode the full forward's."""
+dispatch buffers exactly, and prefill + decode the full forward's.  The
+lockset stress run on the card (K2 in the struct stage, features in the
+pool threads) finds no candidate race and writes the serial run's bytes,
+and the kernel-library audit sees no build and no load once a library
+is loaded."""
 import numpy as np
 import pytest
 import torch
@@ -1071,3 +1075,39 @@ def test_recurrent_families_decode_on_card(cuda, arch):
     _, cache = m.prefill(p, {"tokens": toks[:, :40]}, m.init_cache(2, 41))
     dec = m.forward(p, {"tokens": toks[:, 40:]}, cache=cache).logits
     torch.testing.assert_close(dec[:, 0], full[:, -1], rtol=0, atol=tol)
+
+
+def test_race_stress_on_card(cuda, tmp_path):
+    """The port's lockset stress run on the card (K2 in the struct
+    stage, the KDE draws and alignment in 2 pool threads): zero candidate
+    races, the watched surface exercised, a dataset that verifies and
+    equals the same run at ``pipeline_depth=0``."""
+    from repro_torch.analysis.races import run_stress
+    from repro_torch.datastream import Manifest, ShardedGraphDataset
+    rs.reset_launches()
+    mon = run_stress(str(tmp_path / "p"), edges=40_000, shard_edges=4096,
+                     device=cuda)
+    assert rs.LAUNCHES["rmat_sample_prng"] > 0
+    assert mon.races() == [], "\n".join(r.render() for r in mon.races())
+    for var in ("FeatureSpec.feat_s", "AsyncFlushQueue.busy_s",
+                "Tracer._totals"):
+        assert mon.state_of(var) != "unwatched", var
+    assert mon.state_of("ChunkShardSource._suffix_dev") == "exclusive"
+    run_stress(str(tmp_path / "s"), edges=40_000, shard_edges=4096,
+               pipeline_depth=0, host_workers=1, device=cuda)
+    assert ShardedGraphDataset(str(tmp_path / "p")).verify(deep=True) == []
+    assert len(Manifest.load(str(tmp_path / "p")).shards) >= 8
+    for f in sorted((tmp_path / "p").glob("*.npy")):
+        assert f.read_bytes() == (tmp_path / "s" / f.name).read_bytes()
+
+
+@pytest.mark.parametrize("backend", ["cuda_prng", "cuda_bits"])
+def test_library_load_audit_on_card(cuda, backend):
+    """Once a library is loaded, a multi-shard run through it builds and
+    loads nothing; in any case at most one load a library."""
+    from repro_torch.analysis.retrace import run_retrace
+    first = run_retrace(device=cuda, backend=backend)
+    assert first.ok, first.render()
+    again = run_retrace(device=cuda, backend=backend)
+    assert again.ok, again.render()
+    assert (again.first_pass_builds, again.first_pass_loads) == (0, 0)

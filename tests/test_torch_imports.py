@@ -51,3 +51,8 @@ def test_scan_sees_the_package():
             "roofline.py"} <= names
     launch = {p.name for p in FILES if p.parent.name == "launch"}
     assert {"__init__.py", "mesh.py", "costs.py", "dryrun.py"} <= launch
+    analysis = {p.name for p in FILES if p.parent.name == "analysis"}
+    assert {"__init__.py", "checkers.py", "lint.py", "races.py",
+            "retrace.py", "baseline.py"} <= analysis
+    scripts = {p.name for p in FILES if p.parent.name == "scripts"}
+    assert "lint_repro.py" in scripts
