@@ -15,7 +15,12 @@ the production mesh planned without a card (phase 21) and the toolchain
 probes S1-S4 (phase 12):
 
 1. build the kernels; print the card's name and power limit; read the
-   built SASS: the in-register R-MAT kernel's level loop, and the
+   built SASS and ``-Xptxas -v``: the in-register R-MAT kernel's
+   registers and spills per template instance and the opcodes of the
+   main path's instance's two level loops per edge and level, and its
+   one-edge twin's (the run fails if the main square loop's alu, FMA and
+   issue counts would take fewer clocks than its bound, or the instance
+   holds no 16-byte store), and the
    ``HGMMA``/``UTMALDG``/``SYNCS`` opcodes of the tensor-core flash kernel
    (the run fails without ``HGMMA``);
 2. the threefry random numbers on the card equal the same calls on the
@@ -80,8 +85,13 @@ probes S1-S4 (phase 12):
     reset before each), max |kernel − plain|, its time, its plain
     version's time, its bound and, where one PyTorch call computes the
     same function, that call's time: the R-MAT kernels at the largest
-    chunk of phase 4 (for the in-register kernel also the static opcode
-    counts of its level loop in the built SASS), flash attention at
+    chunk of phase 4 (for the in-register kernel also its registers, the
+    static opcode counts of its level loops in the built SASS, and its
+    ``shapes``: that chunk, phase 21(e)'s n = m = 30 and Fig. 8's L = 24,
+    both at 2^24 edges, phase 13(a)'s mean chunk and both sides of the
+    switch from one to eight edges a thread, each equal to its plain
+    version and timed beside its bound, device µs and plain version; no
+    reading may beat its bound), flash attention at
     phase 8's bf16 shape beside the FMA kernel at the same shape and
     ``scaled_dot_product_attention``, and the probes of phase 12;
 12. the probes S1-S4 of ``scripts/spike_pallas.py`` at its shapes and on
@@ -364,9 +374,8 @@ try:
     # the H100's peaks and the kernels' bounds (one definition, shared
     # with repro_torch.benchmarks); the card's name and power limit
     from repro_torch.kernels.bounds import (
-        HBM_BYTES_PER_S, PEAK_FLOPS, PRNG_ALU_OPS_PER_LEVEL,
-        PRNG_INT_OPS_PER_LEVEL, flash_bound_s, prng_bound_s,
-        prng_kernel_bound_s)
+        ALU_LANES, FMA_HEAVY_LANES, HBM_BYTES_PER_S, ISSUE_LANES, PEAK_FLOPS,
+        flash_bound_s, prng_bound_s, prng_kernel_bound_s, prng_level_clocks)
     from repro_torch.obs.metrics import gpu_line as nvidia_smi_line
 except ImportError as e:
     print(f"chip_smoke: run it from a checkout of the repository ({e})",
@@ -487,43 +496,104 @@ def max_word_err(got, want) -> int:
     return err
 
 
-def sass_level_loop(sass: str) -> dict:
-    """Static opcode counts of the in-register kernel's level loop in
-    ``cuobjdump -sass`` text: the innermost backward branch whose range
-    holds the threefry rotations (``SHF.L.W``), per threefry copy in it
-    (rotations / 20).  Backs the operation counts of its bound."""
+#: the in-register kernel's instance on the main path: narrow ids (32-bit
+#: accumulators), a narrow counter (hi word 0), eight edges a thread; and
+#: its twin of one edge a thread, for launches too small to fill the card
+PRNG_MAIN_INSTANCE = "rmat_prng_kernelILb0ELb0ELi8E"
+PRNG_SMALL_INSTANCE = "rmat_prng_kernelILb0ELb0ELi1E"
+#: opcodes (first word) of the integer alu pipe and of the FMA-heavy pipe
+ALU_OPCODES = ("SHF", "LOP3", "IADD3", "ISETP", "SEL", "LEA", "PRMT")
+FMA_OPCODES = ("IMAD",)
+
+
+def _sass_functions(sass: str) -> dict:
+    """``cuobjdump -sass`` text as ``{function: [(address, opcode,
+    operands)]}``."""
     import re
-    from collections import Counter
-    insts, in_fn = [], False
+    fns, insts = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            in_fn = "rmat_kernelILi2E" in line
+            insts = fns.setdefault(line.split("Function :", 1)[1].strip(), [])
             continue
         ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]\s+)?"
                        r"([A-Z][\w.]*)(.*)", line)
-        if in_fn and ins:
+        if insts is not None and ins:
             insts.append((int(ins.group(1), 16), ins.group(2),
                           ins.group(3)))
-    rot = [a for a, op, _ in insts if op.startswith("SHF.L.W")]
-    loops = []
-    for a, op, rest in insts:
-        tgt = re.match(r"\s*0x([0-9a-f]+)", rest)
-        if op == "BRA" and tgt and int(tgt.group(1), 16) < a:
-            lo = int(tgt.group(1), 16)
-            if any(lo <= r <= a for r in rot):
-                loops.append((a - lo, lo, a))
-    if not loops:
-        return {}
-    _, lo, hi = min(loops)
-    body = [op for a, op, _ in insts if lo <= a <= hi]
-    n_rot = sum(op.startswith("SHF.L.W") for op in body)
-    copies = n_rot / 20
-    ops = Counter(op.split(".")[0] for op in body)
-    return {"threefry_copies": copies,
-            "instructions": len(body) / copies,
-            "SHF.L.W": n_rot / copies,
-            "IMAD.IADD": sum(op == "IMAD.IADD" for op in body) / copies,
-            **{op: n / copies for op, n in sorted(ops.items())}}
+    return fns
+
+
+def sass_prng_loops(sass: str, kernel: str = PRNG_MAIN_INSTANCE) -> dict:
+    """Static opcode counts of the in-register kernel's level loops in
+    ``cuobjdump -sass`` text, per edge and level: the innermost backward
+    branches whose range holds threefry rotations (``SHF.L.W``), in
+    address order (the square segment, then the tail), each divided by
+    its threefry copies (rotations / 20; one per edge of the thread).
+    ``SHF.L.W`` counts the rotations and the ids' one-bit pushes.
+    Backs the operation counts of its bound."""
+    import re
+    from collections import Counter
+    out = {}
+    for name, insts in _sass_functions(sass).items():
+        if kernel not in name:
+            continue
+        # threefry's rotations: funnel shifts by its amounts (the id
+        # pushes are funnel shifts by 1)
+        rot = [a for a, op, rest in insts if op.startswith("SHF.L.W")
+               and rest.split(",")[2].strip() != "0x1"]
+        loops = set()
+        for a, op, rest in insts:
+            tgt = re.match(r"\s*0x([0-9a-f]+)", rest)
+            if op == "BRA" and tgt and int(tgt.group(1), 16) < a:
+                lo = int(tgt.group(1), 16)
+                if any(lo <= r <= a for r in rot):
+                    loops.add((lo, a))
+        inner = sorted(lp for lp in loops if not any(
+            o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops))
+        for label, (lo, hi) in zip(("square", "tail"), inner):
+            body = [op for a, op, _ in insts if lo <= a <= hi]
+            copies = sum(lo <= a <= hi for a in rot) / 20
+            ops = Counter(op.split(".")[0] for op in body)
+            for wide in ("IMAD.IADD", "IMAD.SHL", "IMAD.MOV", "SHF.L.W",
+                         "SHF.R"):
+                n = sum(op.startswith(wide) for op in body)
+                if n:
+                    ops[wide] = n
+            out[label] = {"threefry_copies": copies,
+                          "instructions": len(body) / copies,
+                          **{op: n / copies
+                             for op, n in sorted(ops.items())}}
+    return out
+
+
+def ptxas_kernels(report: str, kernel: str) -> dict:
+    """Registers, spills and shared memory of each template instance of
+    ``kernel`` in a ``-Xptxas -v`` report, keyed by its template
+    arguments."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        fn = re.search(r"Compiling entry function '([^']+)'", line)
+        if fn:
+            name = fn.group(1) if kernel in fn.group(1) else None
+            if name:
+                key = re.search(kernel + r"(I.*?EE)", name)
+                name = key.group(1) if key else name
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if sp:
+            out[name].update(spill_stores=int(sp.group(1)),
+                             spill_loads=int(sp.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[name]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def read_sass(build, library) -> str:
@@ -561,21 +631,66 @@ def sass_opcodes(sass: str, kernel: str, names=TC_OPCODES,
     """Static counts of the opcodes ``classify`` maps to one of ``names``
     in each SASS function whose name holds ``kernel`` (one per template
     instance)."""
-    import re
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            name = fn if kernel in fn else None
-            if name:
-                counts[name] = dict.fromkeys(names, 0)
-            continue
-        ins = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]\s+)?"
-                       r"([A-Z][\w.]*)", line)
-        op = classify(ins.group(1)) if name and ins else None
-        if op:
-            counts[name][op] += 1
+    counts = {}
+    for name, insts in _sass_functions(sass).items():
+        if kernel in name:
+            counts[name] = dict.fromkeys(names, 0)
+            for _, op, _ in insts:
+                key = classify(op)
+                if key:
+                    counts[name][key] += 1
     return counts
+
+
+def loop_clocks(loop: dict) -> float:
+    """SM clocks a level loop's static opcodes per edge and level take at
+    least: its alu-pipe and FMA-pipe operations at their lanes, all its
+    instructions at the issue limit."""
+    alu = sum(loop.get(op, 0) for op in ALU_OPCODES)
+    fma = sum(loop.get(op, 0) for op in FMA_OPCODES)
+    return max(alu / ALU_LANES, fma / FMA_HEAVY_LANES,
+               loop["instructions"] / ISSUE_LANES)
+
+
+def prng_build_facts(reports: dict, build, rs) -> dict:
+    """The in-register kernel as built: ``-Xptxas -v``'s registers and
+    spills of each template instance, and the level loops of the main
+    path's instance and its one-edge twin in the SASS, opcodes per edge
+    and level.  Fails if the main instance's SASS holds no 16-byte store,
+    or if its square loop's opcodes would take fewer clocks than
+    ``bounds.prng_level_clocks``, which would make the bound no floor."""
+    report = reports.get(rs.LIBRARY.name, ("", 0.0))[0]
+    regs = ptxas_kernels(report, "rmat_prng_kernel")
+    sass = read_sass(build, rs.LIBRARY)
+    loops = sass_prng_loops(sass)
+    small = sass_prng_loops(sass, PRNG_SMALL_INSTANCE)
+    stores = sass_opcodes(sass, PRNG_MAIN_INSTANCE, ("STG.128",),
+                          wide_access)
+    floor = prng_level_clocks()
+    log(f"ptxas: the prng kernel's instances (ILb<wide ids>ELb<wide "
+        f"counter>ELi<edges a thread>EE): "
+        f"{regs or 'not reported (built already)'}")
+    log(f"sass: the prng kernel's level loops ({PRNG_MAIN_INSTANCE}), "
+        f"static opcodes per edge and level: {loops or 'not read'}; "
+        f"({PRNG_SMALL_INSTANCE}): {small or 'not read'}; its bound "
+        f"takes {floor:.4f} SM clocks an edge and level (threefry's "
+        "xors on the alu pipe, adds on either pipe, rotations split "
+        "between them at best)")
+    if sass:
+        check(len(stores) == 1 and all(c["STG.128"] > 0
+                                       for c in stores.values()),
+              "the prng kernel's SASS holds no 16-byte store")
+    if loops:
+        need = {k: loop_clocks(v) for k, v in loops.items()}
+        log(f"sass: the main instance's loops need at least "
+            f"{ {k: round(v, 4) for k, v in need.items()} } SM clocks an "
+            f"edge and level (alu ops / {ALU_LANES}, FMA ops / "
+            f"{FMA_HEAVY_LANES}, instructions / {ISSUE_LANES})")
+        check(need["square"] >= floor,
+              f"the prng kernel's square loop needs {need['square']:.4f} SM "
+              f"clocks a level, fewer than the {floor:.4f} its bound takes")
+    return {"registers": regs, "sass_loops": loops,
+            "sass_loops_one_edge": small}
 
 
 def phase_rng(tr, torch) -> None:
@@ -1405,11 +1520,67 @@ def phase_struct_at_scale(tr, rmat, KroneckerFit, rs, torch) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_timing(tr, ref, rs, torch, errs: dict, launches: dict,
+#: K2's other timing shapes in phase 11, with the demo θ: phase 21(e)'s
+#: generation cell and Fig. 8's ``--full`` sweep at 2^24 edges, and phase
+#: 13(a)'s mean chunk (163 840 000 edges in 15 923 chunks at k_pref 7)
+K2_SHAPES = (("the generation cell of phase 21(e)", 30, 30, 1 << 24),
+             ("Fig. 8 --full", 24, 24, 1 << 24),
+             ("phase 13(a)'s mean chunk", 11, 8, 10_290))
+
+
+def k2_reading(label: str, kern, plain, bound_s: float) -> dict:
+    """K2 timed at one shape: CUDA-event ms (the least of two loops of
+    10), profiler device µs, the plain version's ms, beside its bound;
+    fails if the reading beats the bound (the bound would be no floor)."""
+    ms = min(cuda_ms(kern, 10), cuda_ms(kern, 10))
+    plain_ms = cuda_ms(plain, 1)
+    dev_us, names, kept = device_us(kern, 5)
+    share = bound_s * 1e3 / ms
+    log(f"timing rmat_sample_prng at {label}: kernel {ms:.4f} ms (device "
+        f"{us_text(dev_us)}: {', '.join(names)}, {kept} events of 5 calls "
+        f"kept), plain {plain_ms:.3f} ms, bound {bound_s * 1e3:.4f} ms "
+        f"(operations), {share:.1%} of it")
+    check(share <= 1.0, f"K2 at {label} reads {share:.1%} of its bound")
+    return {"shape": label, "ms": ms, "device_us": dev_us,
+            "device_kept": kept, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "of_bound": share}
+
+
+def k2_at_shapes(tr, ref, rs, sampler, torch) -> list:
+    """K2 at ``K2_SHAPES`` and on both sides of its switch to eight edges a
+    thread (one group of eight for each lane of a warp on each of an SM's
+    four schedulers): equal to its plain version there, then timed."""
+    from functools import partial
+    switch = torch.cuda.get_device_properties(0).multi_processor_count * \
+        4 * 32 * 8
+    out = []
+    for what, n, m, E in K2_SHAPES + (
+            ("one edge a thread, one group below the switch", 16, 13,
+             switch - 8),
+            ("eight edges a thread, at the switch", 16, 13, switch)):
+        L = max(n, m)
+        th = torch.tensor([DEMO_THETA] * L, dtype=torch.float32,
+                          device="cuda")
+        pad = sampler._pad_edges(E, sampler.choose_block(E))
+        key = tr.PRNGKey(L)
+        kern = partial(rs.rmat_sample_prng, key, th, n, m, E, pad)
+        plain = partial(ref.rmat_prng_ref, key, th, n, m, E, pad)
+        err = max_word_err(kern(), plain())
+        check(err == 0, f"K2 at {what} differs from its plain version "
+              f"({err})")
+        label = f"n={n} m={m} L={L} E={E} stride={pad}: {what}, demo θ"
+        out.append({**k2_reading(label, kern, plain,
+                                 prng_kernel_bound_s(L, E)),
+                    "max_abs_err": err})
+    return out
+
+
+def phase_timing(tr, ref, rs, sampler, torch, errs: dict, launches: dict,
                  largest) -> list:
     """Each kernel at the largest chunk the main path drew: K2 on its own
     arguments, K1 and K3 on the words (and uniforms) ``cuda_bits`` would
-    draw for that chunk."""
+    draw for that chunk; then K2 at ``K2_SHAPES`` (its row's
+    ``shapes``)."""
     key, th, n, m, E, pad = largest
     L = max(n, m)
     bits = tr.bits(key, (L, pad), "cuda")
@@ -1456,6 +1627,16 @@ def phase_timing(tr, ref, rs, torch, errs: dict, launches: dict,
             f"{us_text(dev_us)}: {', '.join(dev_names)}, {kept} events of 5 "
             f"calls kept), plain {plain_ms:.3f}/{plain_ms2:.3f} ms, bound "
             f"{bound_s * 1e3:.4f} ms ({by}), {shape}")
+    k2 = rows[-1]
+    share = k2["bound_ms"] / k2["ms"]
+    check(share <= 1.0, f"K2 at the largest chunk reads {share:.1%} of its "
+          "bound")
+    k2["shapes"] = [{"shape": shape, "ms": k2["ms"],
+                     "device_us": k2["device_us"],
+                     "device_kept": k2["device_kept"],
+                     "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+                     "of_bound": share, "max_abs_err": errs[k2["name"]]}]
+    k2["shapes"] += k2_at_shapes(tr, ref, rs, sampler, torch)
     log("library_ms: no single PyTorch call computes an R-MAT descend, so "
         "there is no library yardstick")
     return rows
@@ -4869,11 +5050,7 @@ def main() -> int:
             for lib in libraries) + f"; card: {card}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    sass = sass_level_loop(read_sass(_build, rs.LIBRARY))
-    log(f"sass: the prng kernel's level loop, static opcodes per threefry "
-        f"copy: {sass or 'not read'}; its bound counts "
-        f"{PRNG_ALU_OPS_PER_LEVEL} alu-only (SHF + LOP3) and "
-        f"{PRNG_INT_OPS_PER_LEVEL} integer operations per level")
+    prng_build = prng_build_facts(reports, _build, rs)
     tc_sass = sass_opcodes(read_sass(_build, fa.WGMMA_LIBRARY),
                            "flash_wgmma_kernel")
     log(f"sass: the tensor-core flash kernel, static opcode counts per "
@@ -5011,9 +5188,9 @@ def main() -> int:
     log(f"analysis: phase 22 wall {analysis['wall']:.1f}s of its "
         f"{ANALYSIS_BUDGET_S:.0f}s budget; " + json.dumps(analysis))
     clock("22")
-    rows = phase_timing(tr, ref, rs, torch, errs, launches, largest)
-    if sass:
-        rows[-1]["sass_level_loop"] = sass
+    rows = phase_timing(tr, ref, rs, sampler, torch, errs, launches,
+                        largest)
+    rows[-1].update(prng_build)
     rows[-1].update(fit_path_launches=fit_launches,
                     fit_path_max_abs_err=fit_err,
                     streamed_launches=stream["launches"],

@@ -52,6 +52,82 @@ def rmat_prng_ref(key: torch.Tensor, thetas: torch.Tensor, n: int, m: int,
         n, m, lambda: torch.zeros(n_edges, dtype=torch.int32, device=dev))
 
 
+#: the 23-bit mantissas of the mantissa trick: ``bits_to_uniform_ref(b)`` is
+#: exactly ``(b >> 9) / UNIT_STEPS``
+UNIT_STEPS = 1 << 23
+
+
+def unit_threshold(t: torch.Tensor) -> torch.Tensor:
+    """The in-register kernel's level thresholds (``unit_threshold`` in
+    ``csrc/rmat_sample.cu``): for float32 ``t``, the int64 ``T`` with
+    ``bits_to_uniform_ref(b) >= t`` exactly when ``(b >> 9) >= T``, that
+    is ``min(ceil(t * 2^23), 2^23)``, 0 for ``t <= 0`` and ``2^23`` (never
+    reached) for NaN.  ``t * 2^23`` is exact in float32."""
+    t = t.to(torch.float32)
+    scaled = torch.ceil(t * float(UNIT_STEPS)).nan_to_num(UNIT_STEPS)
+    T = torch.where(t < 1.0, scaled, torch.full_like(t, UNIT_STEPS))
+    return torch.where(t <= 0.0, torch.zeros_like(t), T).to(torch.int64)
+
+
+def rmat_prng_thresholds_ref(key: torch.Tensor, thetas: torch.Tensor,
+                             n: int, m: int, n_edges: int, stride: int
+                             ) -> Tuple[IdParts, IdParts]:
+    """The CPU mirror of the in-register kernel's arithmetic, which
+    ``rmat_prng_ref`` states in floats: the same ids, made as the kernel
+    makes them.  Integer thresholds from ``unit_threshold`` in place of
+    float compares, sorted as A = min(Ta, Tab, Tabc) <= B = Tab <= C =
+    max(Tab, Tabc), so that the src bit is ``k >= B`` and the dst bit's
+    complement the parity of ``k < A``, ``k < B``, ``k < C``; complemented
+    bits pushed, the square levels then the one-sided tail into the side
+    chosen once; the counter carried by ``stride`` a level (its hi word
+    dropped where ``L * stride <= 2^32``); each id in one accumulator,
+    complemented and cut to its levels at the end, then split into (hi,
+    lo)."""
+    L, lv_sq = max(n, m), min(n, m)
+    if L > 2 * LO_BITS:
+        raise ValueError(f"levels n={n}, m={m}: at most {2 * LO_BITS}")
+    dev = thetas.device
+    th = thetas.to(torch.float32)
+    a, b, c = th[:, 0], th[:, 1], th[:, 2]
+    ab = a + b
+    ta, tab, tabc = (unit_threshold(x) for x in (a, ab, ab + c))
+    A = torch.minimum(torch.minimum(ta, tab), tabc).tolist()
+    B, C = tab.tolist(), torch.maximum(tab, tabc).tolist()
+    M = unit_threshold(ab if n > m else a + c).tolist()
+    narrow_ctr = L * stride <= 1 << 32
+    counter = torch.arange(n_edges, dtype=torch.int64, device=dev)
+    s = torch.zeros(n_edges, dtype=torch.int64, device=dev)
+    d = torch.zeros_like(s)
+
+    def level_k():
+        nonlocal counter
+        word = trandom.bits_at(key, counter).to(torch.int64) & trandom.MASK
+        counter = counter + stride
+        if narrow_ctr:
+            counter = counter & trandom.MASK
+        return word >> 9
+
+    for ell in range(lv_sq):
+        k = level_k()
+        lt_b = k < B[ell]
+        s = 2 * s + lt_b
+        d = 2 * d + ((k < A[ell]) ^ lt_b ^ (k < C[ell]))
+    r = s if n > m else d
+    for ell in range(lv_sq, L):
+        r = 2 * r + (level_k() < M[ell])
+    if n > m:
+        s = r
+    else:
+        d = r
+
+    def parts(acc: torch.Tensor, bits: int) -> IdParts:
+        acc = ~acc & ((1 << bits) - 1)
+        lo = (acc & ((1 << LO_BITS) - 1)).to(torch.int32)
+        return IdParts((acc >> LO_BITS).to(torch.int32)
+                       if bits > LO_BITS else None, lo)
+    return parts(s, n), parts(d, m)
+
+
 def rmat_ref(thetas, uniforms, n: int, m: int, id_dtype=torch.int32):
     """Ids from uniforms: int32 for narrow ids; when ``n``/``m`` exceed 31
     bits the (hi, lo) words are combined into ``id_dtype`` (pass

@@ -1,15 +1,19 @@
 """Wrappers over the hand-written R-MAT CUDA kernels.
 
 The three kernels (``csrc/rmat_sample.cu``) replace the Pallas TPU kernels
-of the JAX package one for one and share one body; they differ only in
+of the JAX package one for one and compute one descend; they differ in
 where each level's uniform comes from:
 
 * ``rmat_sample_uniforms``: float32 uniforms read from device memory;
 * ``rmat_sample_bits``: uint32 words read from device memory and turned
-  into uniforms by the mantissa trick;
+  into uniforms by the mantissa trick (one body with the uniforms kernel);
 * ``rmat_sample_prng``: the words computed in registers by threefry2x32,
   the exact words ``rmat_sample_bits`` would read for
   ``random.bits(key, (L, stride))``, so its ids equal the bits kernel's.
+  Its own body runs eight edges a thread (one in a launch too small to
+  fill the card) and compares each word's mantissa with integer level
+  thresholds (``ref.unit_threshold`` and
+  ``ref.rmat_prng_thresholds_ref`` mirror it on the CPU).
 
 Every wrapper checks its inputs; for tensors on the CPU it takes the
 plain version in ``kernels/ref.py``, for CUDA tensors it launches the

@@ -168,9 +168,31 @@ def test_fig8_bounds_are_the_h100s():
     L = fig8_throughput.N_LEVELS
     assert fig8_throughput.bound_s("cuda_bits", 10) == pytest.approx(
         10 * (4 * L + 8) / 3.35e12, rel=1e-12)
-    # K2: 41 alu-only and 68 integer operations a level and edge, against
-    # 64 alu and 128 integer lanes an SM clock (132 SMs at 1.98 GHz)
-    ops = L * 10 * max(41 / 64, 68 / 128) / (132 * 1.98e9)
+    # K2, a level and edge: 21 xors on the alu pipe, 27 adds on either
+    # pipe, 20 rotations each one alu op or two FMA-pipe ops; with 64 alu
+    # and 64 FMA lanes and 128 issued an SM clock (132 SMs at 1.98 GHz) the
+    # least time puts 14/3 rotations on the FMA pipe: 21 + 20 - 14/3 alu
+    # ops against 27 + 28/3 FMA ops, and 68 + 14/3 issued
+    ops = L * 10 * ((21 + 20 - 14 / 3) / 64) / (132 * 1.98e9)
+    assert (27 + 28 / 3) / 64 == pytest.approx((21 + 20 - 14 / 3) / 64)
+    assert (68 + 14 / 3) / 128 == pytest.approx((21 + 20 - 14 / 3) / 64)
     for name in ("cuda_prng", "reference"):
         assert fig8_throughput.bound_s(name, 10) == pytest.approx(ops,
                                                                   rel=1e-12)
+
+
+def test_prng_floor_is_the_best_split_of_its_rotations():
+    """K2's floor is the least time over every split of threefry's 20
+    rotations between the alu pipe (one funnel shift) and the FMA pipe
+    (two IMADs), on a grid of 1/300 rotation, and below the split that
+    keeps them all on the alu pipe."""
+    from repro_torch.kernels import bounds
+    x, r, a = (bounds.PRNG_XORS_PER_LEVEL, bounds.PRNG_ROTATIONS_PER_LEVEL,
+               bounds.PRNG_ADDS_PER_LEVEL)
+    grid = [bounds.pipe_clocks(x + r - f, 2 * f, a)
+            for f in np.linspace(0.0, r, 300 * r + 1)]
+    floor = bounds.prng_level_clocks()
+    assert floor <= min(grid) + 1e-12
+    assert floor == pytest.approx(min(grid), rel=1e-12)
+    assert floor < bounds.pipe_clocks(x + r, 0, a) == (x + r) / 64
+    assert bounds.pipe_clocks(0, 0, 128) == 1.0

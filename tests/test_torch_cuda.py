@@ -100,6 +100,101 @@ def test_prng_kernel_per_level_thetas_and_padding(cuda):
           ref.rmat_prng_ref(key, th, n, m, E, pad))
 
 
+def _prng_against_plain_and_bits(key, th, n, m, E, stride, dev):
+    """K2 against its plain version, the CPU mirror of its integer
+    arithmetic and K1 on the same words; one launch each."""
+    rs.reset_launches()
+    got = rs.rmat_sample_prng(key, th, n, m, E, stride)
+    assert rs.LAUNCHES["rmat_sample_prng"] == 1
+    _same(got, ref.rmat_prng_ref(key, th, n, m, E, stride))
+    _same(got, ref.rmat_prng_thresholds_ref(key, th, n, m, E, stride))
+    cols = torch.arange(E, dtype=torch.int64, device=dev)
+    bits = torch.stack([tr.bits_at(key, cols + ell * stride)
+                        for ell in range(max(n, m))])
+    _same(got, rs.rmat_sample_bits(th, bits, n, m))
+
+
+#: edges from which K2 runs eight edges a thread on an H100 (132 SMs):
+#: one group of eight for each lane of a warp on each SM's 4 schedulers
+EIGHT_FROM = 132 * 4 * 32 * 8
+
+
+@pytest.mark.parametrize("n,m,E,stride", [
+    # below EIGHT_FROM, one edge a thread
+    (16, 13, 1, 1), (16, 13, 31, 40), (16, 13, 4097, 4100),
+    (16, 13, 4099, 4099), (16, 13, 4100, 4101), (16, 13, 4101, 4104),
+    (16, 13, EIGHT_FROM - 1, EIGHT_FROM),
+    (0, 12, 4097, 4097), (12, 0, 4098, 5000),    # one-sided levels only
+    (34, 20, 10_001, 10_240), (20, 34, 10_003, 10_003),  # wide ids
+    (40, 40, 5_001, 5_001),
+    (27, 27, 100_001, 1 << 28),              # L * stride > 2^32
+    (33, 30, 70_003, 1 << 28),               # ... with wide ids
+    # eight edges a thread, ragged last groups of 1, 7, 3, 4, 5 and 2
+    (16, 13, EIGHT_FROM + 1, EIGHT_FROM + 1),
+    (16, 13, EIGHT_FROM + 7, EIGHT_FROM + 32),
+    (16, 13, 200_003, 200_004), (16, 13, 200_004, 200_005),
+    (16, 13, 300_002, 300_032),
+    (0, 12, 140_001, 140_001), (12, 0, 140_002, 150_000),
+    (34, 20, 150_005, 150_016), (20, 34, 150_003, 150_003),
+    (40, 40, 140_001, 140_001),
+    (27, 27, 140_001, 1 << 28), (33, 30, 140_003, 1 << 28),
+])
+def test_prng_kernel_equals_plain_and_bits_kernel(cuda, n, m, E, stride):
+    L = max(n, m)
+    th = torch.from_numpy(np.random.default_rng(L + E).dirichlet(
+        np.ones(4), size=L).astype(np.float32)).to(cuda)
+    _prng_against_plain_and_bits(tr.fold_in(tr.PRNGKey(n), m), th, n, m, E,
+                                 stride, cuda)
+
+
+@pytest.mark.parametrize("row", [
+    [0.0, 0.0, 1.0, 0.0], [1.0, 0.0, 0.0, 0.0], [0.5, 0.5, 0.0, 0.0],
+    [0.7, 0.6, 0.3, 0.0],                      # sums above 1
+    [3 * 2.0 ** -23, 2.0 ** -23, 0.5, 0.5],    # on the 2^-23 grid
+    [float(np.nextafter(np.float32(0.25), np.float32(0))), 0.25, 0.25,
+     0.25],
+    [-0.25, 0.5, 0.5, 0.25],                   # a negative entry
+])
+def test_prng_kernel_at_threshold_edges(cuda, row):
+    for n, m in ((11, 7), (7, 11), (33, 32)):
+        th = torch.tensor([row] * max(n, m), dtype=torch.float32,
+                          device=cuda)
+        for E in (4099, EIGHT_FROM + 3):     # one and eight edges a thread
+            _prng_against_plain_and_bits(tr.PRNGKey(5), th, n, m, E, E + 2,
+                                         cuda)
+
+
+def test_prng_kernel_with_words_on_the_thresholds(cuda):
+    """Per-level θ whose sums are three edges' own uniforms, so those
+    edges sit on every threshold they meet."""
+    n, m, E, stride = 16, 13, EIGHT_FROM + 3, EIGHT_FROM + 4
+    key = tr.PRNGKey(77)
+    cols = torch.arange(E, dtype=torch.int64, device=cuda)
+    rng = np.random.default_rng(1)
+    rows = []
+    for ell in range(n):
+        u = ref.bits_to_uniform_ref(tr.bits_at(key, cols + ell * stride))
+        t = np.sort(u[torch.from_numpy(rng.choice(E, 3, replace=False))
+                      .to(cuda)].cpu().numpy())
+        rows.append([t[0], t[1] - t[0], t[2] - t[1], 0.0])
+    th = torch.tensor(np.asarray(rows, np.float32), device=cuda)
+    _prng_against_plain_and_bits(key, th, n, m, E, stride, cuda)
+
+
+def test_prng_launcher_refuses_misaligned_outputs(cuda):
+    """The wrapper's outputs are fresh allocations; the C launcher, which
+    stores four edges with each 16-byte store, refuses any other."""
+    th = torch.tensor([TH] * 8, dtype=torch.float32, device=cuda)
+    words = torch.empty(2 * 64 + 1, dtype=torch.int32, device=cuda)
+    ok, off = words[:64].data_ptr(), words[65:].data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = rs._lib()
+    assert lib.rmat_prng(th.data_ptr(), 0, 5, 8, 8, 64, 64, None, ok, None,
+                         off, stream) != 0
+    assert lib.rmat_prng(th.data_ptr(), 0, 5, 8, 8, 64, 64, None, off, None,
+                         ok, stream) != 0
+
+
 @pytest.mark.parametrize("name", ["reference", "cuda_bits", "cuda_prng"])
 def test_backends_on_card_equal_cpu(cuda, name):
     be = sampler.get_backend(name)
